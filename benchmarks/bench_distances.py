@@ -14,6 +14,7 @@ import jax.numpy as jnp
 
 sys.path.insert(0, ".")  # allow running from the repo root
 
+from xpysom_dask_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
 from benchmarks.bench_utils import bench, rand_samples  # noqa: E402
 from xpysom_dask_tpu.ops import distances as D  # noqa: E402
 
@@ -31,6 +32,7 @@ CASES = {
 
 
 def main():
+    enable_compile_cache()
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("-n", type=int, default=10000, help="number of samples")
     ap.add_argument("-w", type=int, default=256, help="number of codebook rows")

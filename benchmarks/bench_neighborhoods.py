@@ -16,12 +16,14 @@ import jax.numpy as jnp
 
 sys.path.insert(0, ".")
 
+from xpysom_dask_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
 from benchmarks.bench_utils import bench  # noqa: E402
 from xpysom_dask_tpu.core import grid_coordinates  # noqa: E402
 from xpysom_dask_tpu.ops import neighborhoods as NB  # noqa: E402
 
 
 def main():
+    enable_compile_cache()
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("-x", type=int, default=64)
     ap.add_argument("-y", type=int, default=64)

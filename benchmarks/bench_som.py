@@ -3,7 +3,7 @@
 
 No counterpart in the reference (its benchmarks only cover kernels); this
 measures what actually matters — samples/sec of the full training step —
-across configurable shapes, including the BASELINE.md north-star shape
+across configurable shapes, including the BASELINE.json north-star shape
 (128×128 codebook, D=64).
 """
 
@@ -16,11 +16,13 @@ import jax.numpy as jnp
 
 sys.path.insert(0, ".")
 
+from xpysom_dask_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
 from benchmarks.bench_utils import bench  # noqa: E402
 from xpysom_dask_tpu.core import SomSpec, chunk_data, make_train_fn  # noqa: E402
 
 
 def main():
+    enable_compile_cache()
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("-x", type=int, default=128)
     ap.add_argument("-y", type=int, default=128)
@@ -29,9 +31,8 @@ def main():
     ap.add_argument("--chunk", type=int, default=8192)
     ap.add_argument("-r", type=int, default=5)
     ap.add_argument("--epochs-per-rep", type=int, default=10,
-                    help="epochs per timed dispatch (amortizes transport "
-                         "dispatch/queue latency; see BASELINE.md round-2 "
-                         "addendum on per-dispatch timing hazards)")
+                    help="epochs per timed dispatch (amortizes the "
+                         "per-dispatch latency)")
     ap.add_argument("--neighborhood", default="gaussian")
     ap.add_argument("--topology", default="rectangular")
     ap.add_argument("--mesh", type=int, default=0,
@@ -87,9 +88,8 @@ def main():
 
     k = max(1, args.epochs_per_rep)
     schedule = max(100, (args.r + 2) * k + 1)
-    # K epochs in ONE dispatch on EVERY path — per-dispatch transport
-    # latency is load-dependent on relayed rigs (BASELINE.md), and the
-    # mesh paths must amortize it exactly like the single-chip path or
+    # K epochs in ONE dispatch on EVERY path — the mesh paths must
+    # amortize per-dispatch latency exactly like the single-device path or
     # mesh-vs-single comparisons are biased by (k-1) extra dispatches
     if mesh is not None:
         # is_grid_mesh already bound by the sharding block above

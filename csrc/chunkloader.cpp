@@ -1,10 +1,10 @@
 // Native streaming chunk loader for huge-N SOM training.
 //
-// Role: the host-side data engine feeding the TPU streaming pipeline
+// Role: the host-side data engine feeding the device streaming pipeline
 // (xpysom_dask_tpu/parallel/pipeline.py). A background reader thread
 // streams fixed-size superbatches of float32 rows from a binary file into
 // a ring of pre-allocated buffers, so disk I/O overlaps device compute —
-// the TPU-native counterpart of the reference's Dask chunk shipping
+// the counterpart of the reference's Dask chunk shipping
 // (reference xpysom.py:545-558), where the "transport" was the user's
 // Dask cluster. Exposed to Python via a plain C ABI consumed with ctypes
 // (no pybind11 in this environment).

@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Handwritten digits (reference examples/HandwrittenDigits.ipynb
 workload): 1797x64 digits onto a 30x30 SOM with exponential decay —
-BASELINE.md config #3."""
+BASELINE.json config #3."""
 
 import numpy as np
 from sklearn import datasets

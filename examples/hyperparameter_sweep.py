@@ -4,13 +4,12 @@ The classic SOM model-selection loop — train several maps with different
 seeds and σ schedules, keep the lowest-QE one — runs serially in the
 reference (one full train per candidate). ``SomPopulation`` runs the
 whole sweep through one call: with the default ``strategy='auto'``,
-resident data routes to the measured-fastest plan (each member rides the
-single-model fused Pallas executables over one shared device-resident
-copy of the data; members with identical schedules reuse ONE compiled
-program). ``strategy='batched'`` (the concatenated-codebook MXU GEMM)
-and ``'fused'`` (per-member kernels inside ``lax.map``, the streaming
-default) are available explicitly — see docs/API.md for the measured
-routing.
+resident data routes to ``'serial'`` (each member rides the single-model
+executables over one shared device-resident copy of the data; members
+with identical schedules reuse ONE compiled program).
+``strategy='batched'`` (the concatenated-codebook GEMM) and ``'fused'``
+(per-member searches inside ``lax.map``, the streaming default) are
+available explicitly — see docs/API.md for the routing.
 
 Headless: prints the per-member QE table and the winning configuration.
 """

@@ -1,8 +1,8 @@
 #!/usr/bin/env python
 """Large-scale streamed + sharded training (the seismic-scale DASF
-workload of BASELINE.md: huge-N data that doesn't fit on device).
+workload of BASELINE.json: huge-N data that doesn't fit on device).
 
-Demonstrates the TPU-native replacements for the reference's Dask layer:
+Demonstrates the replacements for the reference's Dask layer:
 - FileSource: native C++ double-buffered reader over a binary dataset
 - mesh='auto': data-parallel shard_map over every local device
 - per-epoch portable checkpoints

@@ -55,25 +55,28 @@ def test_valid_config_accepted():
 
 
 def test_spec_carries_config():
-    som = XPySom(4, 4, 8, bmu_precision="highest", bmu_tiles=(8, 128))
+    som = XPySom(4, 4, 8, bmu_precision="highest", bmu_tiles=(16, 128))
     spec = som._spec
     assert spec.bmu_precision == "highest"
-    assert spec.bmu_tiles == (8, 128)
+    assert spec.bmu_tiles == (16, 128)
     assert spec.use_pallas in (True, False)
     # distinct configs -> distinct (hashable) specs -> distinct jit caches
-    other = XPySom(4, 4, 8, bmu_precision="packed", bmu_tiles=(8, 128))
+    other = XPySom(4, 4, 8, bmu_precision="packed", bmu_tiles=(16, 128))
     assert spec != other._spec
     assert hash(spec) != hash(other._spec) or spec != other._spec
 
 
 def test_default_precision_packed_and_norm_p_highest():
+    """'packed' is the default for every activation; norm_p never reaches
+    the kernel (it always takes the exact XLA path), so it needs no
+    'highest' default of its own."""
     assert XPySom(4, 4, 8)._bmu_precision == "packed"
     assert (
         XPySom(
             4, 4, 8, activation_distance="norm_p",
             activation_distance_kwargs={"p": 4},
         )._bmu_precision
-        == "highest"
+        == "packed"
     )
 
 
@@ -83,11 +86,11 @@ def test_default_precision_packed_and_norm_p_highest():
 def test_env_read_once_at_construction(monkeypatch):
     monkeypatch.setenv("XPYSOM_BMU_PRECISION", "bf16")
     monkeypatch.setenv("XPYSOM_BMU_TILES", "512x1024")
-    monkeypatch.setenv("XPYSOM_TPU_NO_PALLAS", "1")
+    monkeypatch.setenv("XPYSOM_NO_PALLAS", "1")
     som = XPySom(4, 4, 8)
     monkeypatch.delenv("XPYSOM_BMU_PRECISION")
     monkeypatch.delenv("XPYSOM_BMU_TILES")
-    monkeypatch.delenv("XPYSOM_TPU_NO_PALLAS")
+    monkeypatch.delenv("XPYSOM_NO_PALLAS")
     # resolved values survive env removal — no trace-time staleness
     assert som._bmu_precision == "bf16"
     assert som._bmu_tiles == (512, 1024)
@@ -102,9 +105,9 @@ def test_env_read_once_at_construction(monkeypatch):
 
 def test_explicit_kwargs_beat_env(monkeypatch):
     monkeypatch.setenv("XPYSOM_BMU_PRECISION", "bf16")
-    monkeypatch.setenv("XPYSOM_TPU_NO_PALLAS", "1")
-    som = XPySom(4, 4, 8, bmu_precision="split3", use_pallas=True)
-    assert som._bmu_precision == "split3"
+    monkeypatch.setenv("XPYSOM_NO_PALLAS", "1")
+    som = XPySom(4, 4, 8, bmu_precision="split2", use_pallas=True)
+    assert som._bmu_precision == "split2"
     assert som._use_pallas is True
 
 
@@ -119,21 +122,22 @@ def test_use_pallas_false_short_circuits_kind():
 def test_bmu_chunk_threads_mode_and_tiles(monkeypatch):
     """The spec's mode/tiles reach the kernel call — checked by swapping
     the kernel for a recorder and forcing the dispatch to 'euclidean'
-    (kernels themselves are exercised on-chip, tests_tpu/)."""
+    (the kernel itself is exercised in test_pallas.py and tests_gpu/)."""
     import jax.numpy as jnp
 
     import xpysom_dask_tpu.ops.pallas.bmu as bmu_mod
 
     calls = {}
 
-    def fake_bmu(x, w_flat, w_sq=None, *, center=None, mode=None, tiles=None):
+    def fake_searcher(w_flat, w_sq=None, *, center=None, mode, top2, blocks):
         calls["mode"] = mode
-        calls["tiles"] = tiles
-        return jnp.zeros(x.shape[0], jnp.int32), jnp.zeros(x.shape[0])
+        calls["tiles"] = blocks
+        return lambda x: (jnp.zeros(x.shape[0], jnp.int32), jnp.zeros(x.shape[0]))
 
-    monkeypatch.setattr(bmu_mod, "bmu_euclidean", fake_bmu)
+    monkeypatch.setattr(bmu_mod, "searcher", fake_searcher)
     monkeypatch.setattr(
-        core, "_pallas_bmu_kind", lambda dist, d_dim, use_pallas=None: "euclidean"
+        core, "_pallas_bmu_kind",
+        lambda dist, d_dim, use_pallas=None, mode=None: "euclidean",
     )
     spec = SomSpec(
         x=4, y=4, input_len=8, sigma=2.0, sigmaN=1.0,
@@ -144,10 +148,10 @@ def test_bmu_chunk_threads_mode_and_tiles(monkeypatch):
     w = jnp.zeros((16, 8), jnp.float32)
     core._bmu_chunk(spec.distance_fn(), x, w, None, spec)
     assert calls == {"mode": "bf16", "tiles": (512, 2048)}
-    # None spec passes None through: the kernel uses its own defaults
-    # ('packed', measured tile table) — it never reads env (round 4)
+    # None spec: the kernel defaults ('packed', the per-width block
+    # table) — the kernel never reads env
     core._bmu_chunk(spec.distance_fn(), x, w, None, None)
-    assert calls == {"mode": None, "tiles": None}
+    assert calls == {"mode": "packed", "tiles": None}
 
 
 def test_mode_switch_in_one_process():
@@ -177,14 +181,14 @@ def test_spec_post_init_resolves_env(monkeypatch):
     old spec, and every jit cache keyed on it, is untouched)."""
     monkeypatch.setenv("XPYSOM_BMU_PRECISION", "bf16")
     monkeypatch.setenv("XPYSOM_BMU_TILES", "512x1024")
-    monkeypatch.setenv("XPYSOM_TPU_NO_PALLAS", "1")
+    monkeypatch.setenv("XPYSOM_NO_PALLAS", "1")
     a = SomSpec(4, 4, 8, 2.0, 1.0, 0.5, 0.01)
     assert (a.bmu_precision, a.bmu_tiles, a.use_pallas) == (
         "bf16", (512, 1024), False,
     )
     monkeypatch.delenv("XPYSOM_BMU_PRECISION")
     monkeypatch.delenv("XPYSOM_BMU_TILES")
-    monkeypatch.delenv("XPYSOM_TPU_NO_PALLAS")
+    monkeypatch.delenv("XPYSOM_NO_PALLAS")
     b = SomSpec(4, 4, 8, 2.0, 1.0, 0.5, 0.01)
     assert (b.bmu_precision, b.bmu_tiles, b.use_pallas) == (
         "packed", None, True,
@@ -197,11 +201,11 @@ def test_spec_post_init_resolves_env(monkeypatch):
     monkeypatch.setenv("XPYSOM_BMU_PRECISION", "bf16")
     c = SomSpec(4, 4, 8, 2.0, 1.0, 0.5, 0.01, bmu_precision="highest")
     assert c.bmu_precision == "highest"
-    # norm_p default is 'highest' when neither kwarg nor env supplies one
+    # norm_p takes the same default as every activation
     monkeypatch.delenv("XPYSOM_BMU_PRECISION")
     d = SomSpec(4, 4, 8, 2.0, 1.0, 0.5, 0.01, distance="norm_p",
                 distance_kwargs=(("p", 4),))
-    assert d.bmu_precision == "highest"
+    assert d.bmu_precision == "packed"
 
 
 def test_env_junk_warns_at_construction(monkeypatch):
@@ -252,7 +256,6 @@ def test_no_env_reads_while_tracing(monkeypatch):
             return getattr(real_environ, name)
 
     import xpysom_dask_tpu.core as core_mod
-    import xpysom_dask_tpu.ops.pallas.bmu as bmu_mod
 
     data = jnp.asarray(_data(32, 8))
     chunks = data.reshape(2, 16, 8)
@@ -263,10 +266,8 @@ def test_no_env_reads_while_tracing(monkeypatch):
     step = core.make_epoch_fn.__wrapped__(spec, 3)  # bypass lru_cache
 
     guard = _Guard()
-    # core and bmu hold the env-reading helpers; both alias the os module,
-    # so patching os.environ on either patches the other — patch once via
-    # the module object to keep the intent explicit
-    assert core_mod.os is bmu_mod.os
+    # core holds the env-reading helpers; patching os.environ through its
+    # os module patches it for every module
     monkeypatch.setattr(core_mod.os, "environ", guard, raising=True)
     try:
         # first call = trace + compile + run: no env read may happen here
@@ -285,15 +286,16 @@ def test_direct_core_mode_switch_no_staleness(monkeypatch):
 
     captured = []
 
-    def fake_bmu(x, w_flat, w_sq=None, *, center=None, mode=None, tiles=None):
-        captured.append((mode, tiles))
-        return jnp.zeros(x.shape[0], jnp.int32), jnp.zeros(x.shape[0])
+    def fake_searcher(w_flat, w_sq=None, *, center=None, mode, top2, blocks):
+        captured.append((mode, blocks))
+        return lambda x: (jnp.zeros(x.shape[0], jnp.int32), jnp.zeros(x.shape[0]))
 
     import xpysom_dask_tpu.ops.pallas.bmu as bmu_mod
 
-    monkeypatch.setattr(bmu_mod, "bmu_euclidean", fake_bmu)
+    monkeypatch.setattr(bmu_mod, "searcher", fake_searcher)
     monkeypatch.setattr(
-        core, "_pallas_bmu_kind", lambda dist, d_dim, use_pallas=None: "euclidean"
+        core, "_pallas_bmu_kind",
+        lambda dist, d_dim, use_pallas=None, mode=None: "euclidean",
     )
     x = jnp.zeros((4, 8), jnp.float32)
     w = jnp.zeros((16, 8), jnp.float32)
@@ -313,13 +315,13 @@ def test_direct_core_mode_switch_no_staleness(monkeypatch):
 def test_checkpoint_roundtrip_preserves_config(tmp_path):
     som = XPySom(
         4, 4, 8, random_seed=7,
-        bmu_precision="split3", bmu_tiles=(1024, 2048), use_pallas=False,
+        bmu_precision="split2", bmu_tiles=(1024, 2048), use_pallas=False,
     )
     som.train(_data(), 1)
     p = tmp_path / "ck"
     som.save_checkpoint(p, epoch=1)
     back = XPySom.load_checkpoint(p)
-    assert back._bmu_precision == "split3"
+    assert back._bmu_precision == "split2"
     assert back._bmu_tiles == (1024, 2048)
     assert back._use_pallas is False
     np.testing.assert_array_equal(back.get_weights(), som.get_weights())
@@ -327,8 +329,8 @@ def test_checkpoint_roundtrip_preserves_config(tmp_path):
 
 def test_checkpoint_hw_config_persists_only_when_explicit(tmp_path, monkeypatch):
     """ADVICE r3 (low): use_pallas/bmu_tiles are HARDWARE tuning — a
-    checkpoint must not pin env-resolved or autotuned values on a
-    different machine, and XPYSOM_TPU_NO_PALLAS on the loading host must
+    checkpoint must not pin env-resolved values on a different machine,
+    and XPYSOM_NO_PALLAS on the loading host must
     be honored. bmu_precision is numeric semantics and always travels."""
     monkeypatch.setenv("XPYSOM_BMU_TILES", "512x1024")  # env-resolved, not explicit
     som = XPySom(4, 4, 8, random_seed=7, bmu_precision="bf16")
@@ -340,16 +342,16 @@ def test_checkpoint_hw_config_persists_only_when_explicit(tmp_path, monkeypatch)
     assert back._bmu_tiles is None  # fresh resolution on the loading host
     assert back._bmu_precision == "bf16"  # numeric mode travels
     # the kill-switch works on loaded models (reference _no_opt pattern)
-    monkeypatch.setenv("XPYSOM_TPU_NO_PALLAS", "1")
+    monkeypatch.setenv("XPYSOM_NO_PALLAS", "1")
     back2 = XPySom.load_checkpoint(p)
     assert back2._use_pallas is False
-    monkeypatch.delenv("XPYSOM_TPU_NO_PALLAS")
+    monkeypatch.delenv("XPYSOM_NO_PALLAS")
     # explicit values still travel (test_checkpoint_roundtrip_preserves_config)
-    som3 = XPySom(4, 4, 8, use_pallas=True, bmu_tiles=(8, 128))
+    som3 = XPySom(4, 4, 8, use_pallas=True, bmu_tiles=(16, 128))
     som3.save_checkpoint(p)
-    monkeypatch.setenv("XPYSOM_TPU_NO_PALLAS", "1")
+    monkeypatch.setenv("XPYSOM_NO_PALLAS", "1")
     back3 = XPySom.load_checkpoint(p)
-    assert back3._use_pallas is True and back3._bmu_tiles == (8, 128)
+    assert back3._use_pallas is True and back3._bmu_tiles == (16, 128)
 
 
 def test_checkpoint_auto_n_parallel_stays_auto(tmp_path):
@@ -372,10 +374,10 @@ def test_checkpoint_auto_n_parallel_stays_auto(tmp_path):
 
 
 def test_pickle_roundtrip_and_legacy_state():
-    som = XPySom(4, 4, 8, bmu_precision="bf16", bmu_tiles=(8, 128))
+    som = XPySom(4, 4, 8, bmu_precision="bf16", bmu_tiles=(16, 128))
     back = pickle.loads(pickle.dumps(som))
     assert back._bmu_precision == "bf16"
-    assert back._bmu_tiles == (8, 128)
+    assert back._bmu_tiles == (16, 128)
     # a pre-config pickle (no _bmu_* attrs) must load with defaults
     state = som.__getstate__()
     for k in ("_bmu_precision", "_bmu_tiles", "_use_pallas"):
@@ -386,20 +388,6 @@ def test_pickle_roundtrip_and_legacy_state():
     assert legacy._bmu_tiles is None
     assert legacy._use_pallas is True
     assert legacy._spec.bmu_precision == "packed"
-
-
-# -- autotune guard (ADVICE r2 low) -------------------------------------------
-
-
-def test_autotune_warns_and_skips_off_kernel_path():
-    """On the CPU test backend no fused kernel is ever traced — tuning
-    would waste remote compiles and pin tiles for a kernel training
-    never runs."""
-    som = XPySom(4, 4, 8)
-    with pytest.warns(UserWarning, match="plain-XLA"):
-        res = som.autotune_kernel(apply=True)
-    assert res is None
-    assert som._bmu_tiles is None  # nothing was pinned
 
 
 # -- streaming empty-source guards (ADVICE r2 low) ----------------------------
@@ -431,13 +419,13 @@ def test_built_instance_never_picks_up_later_env(monkeypatch):
     bmu_tiles=None means 'the measured default table', not 'ask env'."""
     monkeypatch.delenv("XPYSOM_BMU_TILES", raising=False)
     monkeypatch.delenv("XPYSOM_BMU_PRECISION", raising=False)
-    monkeypatch.delenv("XPYSOM_TPU_NO_PALLAS", raising=False)
+    monkeypatch.delenv("XPYSOM_NO_PALLAS", raising=False)
     som = XPySom(4, 4, 8)
     assert som._spec.bmu_tiles is None
-    # an autotune elsewhere in the process exports the env pin...
-    monkeypatch.setenv("XPYSOM_BMU_TILES", "8x128")
+    # something elsewhere in the process exports the env pin...
+    monkeypatch.setenv("XPYSOM_BMU_TILES", "16x128")
     monkeypatch.setenv("XPYSOM_BMU_PRECISION", "bf16")
-    monkeypatch.setenv("XPYSOM_TPU_NO_PALLAS", "1")
+    monkeypatch.setenv("XPYSOM_NO_PALLAS", "1")
     # ...and the already-built model is untouched on every access
     spec = som._spec
     assert spec.bmu_tiles is None
@@ -448,7 +436,7 @@ def test_built_instance_never_picks_up_later_env(monkeypatch):
     # the env at THIS construction says 8x128: any other resolution (e.g.
     # a stale earlier value like (512, 1024)) is exactly the bug this
     # construction-boundary check exists for (round-5 review)
-    assert fresh._spec.bmu_tiles == (8, 128)
+    assert fresh._spec.bmu_tiles == (16, 128)
 
 
 def test_spec_concrete_values_validated_at_construction():

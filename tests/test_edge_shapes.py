@@ -2,6 +2,8 @@
 single-feature data, tiny chunks, non-square grids."""
 
 import numpy as np
+
+from xpysom_dask_tpu.utils.hw import ROW_BLOCK
 import pytest
 
 from xpysom_dask_tpu import XPySom
@@ -78,27 +80,27 @@ def test_more_nodes_than_samples():
 
 
 def test_chunk_alignment_keeps_results():
-    """Chunk sizes > 1024 align DOWN to the kernel tile (compile-time fix
-    that must also respect the user's n_parallel memory budget, ADVICE r1);
-    results must be unchanged vs any other chunking."""
+    """Chunk sizes above one row block align DOWN to whole kernel row
+    blocks (respecting the user's n_parallel memory budget); results must
+    be unchanged vs any other chunking."""
     rng = np.random.RandomState(10)
     data = rng.rand(1797, 8).astype(np.float32)  # the digits-shaped trigger
-    a = XPySom(6, 6, 8, random_seed=1, n_parallel=1800)  # -> aligned to 1024
+    a = XPySom(6, 6, 8, random_seed=1, n_parallel=1800)  # -> aligned to 1792
     b = XPySom(6, 6, 8, random_seed=1, n_parallel=512)
     a.train(data, 4)
     b.train(data, 4)
     np.testing.assert_allclose(a._weights, b._weights, rtol=1e-4, atol=1e-5)
     chunk = a._chunked(data)[0].shape[1]
-    assert chunk % 1024 == 0 or chunk <= 1024
+    assert chunk % ROW_BLOCK == 0 or chunk <= ROW_BLOCK
     assert chunk <= 1800  # never exceed the caller's n_parallel budget
 
 
 def test_chunk_never_exceeds_n_parallel():
-    """Tile alignment must round down: n_parallel is the (chunk, XY)
+    """Row-block alignment must round down: n_parallel is the (chunk, XY)
     distance-matrix memory bound inherited from the reference API."""
     data = np.random.RandomState(11).rand(4096, 4).astype(np.float32)
     for n_par in (1100, 2049, 3000, 4096):
         som = XPySom(4, 4, 4, random_seed=1, n_parallel=n_par)
         chunk = som._chunked(data)[0].shape[1]
         assert chunk <= n_par, (n_par, chunk)
-        assert chunk % 1024 == 0 or chunk <= 1024
+        assert chunk % ROW_BLOCK == 0 or chunk <= ROW_BLOCK

@@ -1,6 +1,6 @@
 """Direct tests for the n_parallel auto-sizing logic (utils/hw.py) — the
-TPU-native counterpart of the reference's CUDA-occupancy sizing
-(xpysom.py:242-251, utils.py:4-20)."""
+counterpart of the reference's CUDA-occupancy sizing (xpysom.py:242-251,
+utils.py:4-20)."""
 
 import numpy as np
 
@@ -16,7 +16,7 @@ def test_round_up():
 def test_default_n_parallel_budget_honored():
     # Non-fused path: (chunk, XY) element budget respected after rounding
     for xy in (36, 900, 16384, 1 << 20):
-        chunk = hw.default_n_parallel(xy, backend="tpu", fused=False)
+        chunk = hw.default_n_parallel(xy, backend="gpu", fused=False)
         assert chunk % 256 == 0
         assert 256 <= chunk <= 65536
         if 256 < chunk < 65536:  # interior: within one rounding step of budget
@@ -24,15 +24,17 @@ def test_default_n_parallel_budget_honored():
 
 
 def test_default_n_parallel_fused_tpu_fixed():
-    # Fused Pallas path never materializes the matrix: measured-best 16384
-    assert hw.default_n_parallel(16384, backend="tpu", fused=True) == 16384
-    assert hw.default_n_parallel(36, backend="tpu", fused=True) == 16384
+    # The fused kernel never materializes the matrix: a fixed chunk on the
+    # GPU, whatever the map size; off the GPU there is no kernel
+    assert hw.default_n_parallel(16384, backend="gpu", fused=True) == 16384
+    assert hw.default_n_parallel(36, backend="gpu", fused=True) == 16384
+    assert hw.default_n_parallel(16384, backend="cpu", fused=True) == 256
 
 
 def test_default_n_parallel_cpu_smaller_budget():
     cpu = hw.default_n_parallel(4096, backend="cpu")
-    tpu = hw.default_n_parallel(4096, backend="tpu")
-    assert cpu <= tpu
+    gpu = hw.default_n_parallel(4096, backend="gpu")
+    assert cpu <= gpu
     assert cpu == 256  # 2^20 budget / 4096 = 256
 
 

@@ -24,6 +24,34 @@ def test_streaming_matches_resident():
     )
 
 
+@pytest.mark.parametrize("split", ["0", "1"])
+@pytest.mark.parametrize("superbatch_rows", [128, 320])
+def test_streaming_equals_resident_across_superbatches(
+    monkeypatch, split, superbatch_rows
+):
+    """Several superbatches per epoch: the stream continues the scan's
+    accumulator from one superbatch to the next, so its additions happen
+    in the resident epoch's order and the weights agree to the bit
+    (folding per-superbatch totals instead drifts by near-tie flips)."""
+    from xpysom_dask_tpu.core import clear_program_caches
+
+    monkeypatch.setenv("XPYSOM_SPLIT_SCATTER", split)
+    clear_program_caches()
+    rng = np.random.RandomState(4)
+    centres = rng.rand(8, 6).astype(np.float32)
+    data = centres[rng.randint(0, 8, 1000)] + 0.05 * rng.randn(1000, 6).astype(
+        np.float32
+    )
+    resident = XPySom(7, 7, 6, random_seed=5, n_parallel=64)
+    resident.train(data, 4)
+    w = train_streaming(
+        resident._spec, XPySom(7, 7, 6, random_seed=5)._weights,
+        ArraySource(data), 4, chunk=64, superbatch_rows=superbatch_rows,
+    )
+    clear_program_caches()
+    np.testing.assert_array_equal(w, resident._weights)
+
+
 def test_streaming_memmap(tmp_path):
     rng = np.random.RandomState(1)
     data = rng.rand(300, 4).astype(np.float32)

@@ -471,8 +471,7 @@ def test_population_streaming_verbose_prints_qe(capsys):
     pop.train(ArraySource(data), 2, verbose=True)
     assert "quantization errors" in capsys.readouterr().out
 
-# -- strategy routing (round 4: batched measured 0.6-0.75x of serial on
-# v5e, BASELINE.md round 4 -> 'auto' routes resident data per member) ----
+# -- strategy routing ('auto' routes resident data per member) ----------
 
 
 def test_population_serial_bitwise_matches_individual_training():
@@ -603,8 +602,8 @@ def test_population_serial_verbose_path(capsys):
 
 def test_population_fused_matches_serial_one_epoch():
     """Round 5: the 'fused' strategy (lax.map over members, fused
-    single-model stats body) computes the SAME math as 'serial' — off-TPU
-    both reduce to dist.flat + argmin per member, so one epoch matches
+    single-model stats body) computes the SAME math as 'serial' — on the
+    CPU both reduce to dist.flat + argmin per member, so one epoch matches
     bitwise-class tight; multi-epoch compares by QE (module header)."""
     data = _blobs(n=220)
     a = SomPopulation(3, 5, 5, 8, sigma=[1.0, 1.5, 2.0], random_seed=7)
@@ -651,11 +650,10 @@ def test_population_streaming_fused_and_batched_parity(tmp_path):
 
 
 def test_population_streaming_auto_gate_routes_measured_rows():
-    """The streaming-'auto' gate routes every on-chip measured row
-    (tools/r5_results.jsonl, 24×24×16 maps) to its winner-or-tie: fused
-    wins 1.06–1.35× at 2.3k–18.4k, ties at 23.0k, wins AGAIN 1.26×/1.19×
-    at 27.6k/32.3k (non-monotone — batched's block-argmin tiling), and
-    loses only at 36.9k. The true crossover is pinned in (32.3k, 36.9k)."""
+    """The streaming-'auto' gate: stacked codebooks up to 32,768 nodes
+    (P of 24×24 maps, P ≤ 56) route to 'fused', larger ones to 'concat'.
+    The crossover was measured on another accelerator; the GPU's is not
+    measured yet (ROADMAP)."""
     from xpysom_dask_tpu.models.population import _streaming_auto_impl
 
     # fused-side rows: P ∈ {4, 16, 32, 40, 48, 56} of 24×24 maps

@@ -1,7 +1,7 @@
-"""End-to-end training parity: the TPU core (scatter sufficient statistics
+"""End-to-end training parity: the JAX core (scatter sufficient statistics
 + factored neighborhood operator) vs the golden NumPy model that follows
 the reference algorithm verbatim (materialized g, gᵀ@x GEMM). Agreement
-here validates the TPU-first reformulation, not just the kernels."""
+here validates the reformulation, not just the kernels."""
 
 import numpy as np
 import pytest
@@ -129,9 +129,9 @@ def test_quantization_error_parity_random_weights():
 )
 def test_training_parity_non_euclidean_activations(distance, kwargs):
     """Training under the cosine/manhattan/even-norm_p activations must
-    track the float64 golden oracle — these are the activations the
-    fused Pallas kernels serve on TPU (XLA path on CPU; the kernels
-    themselves are pinned in test_pallas.py + tests_tpu/)."""
+    track the float64 golden oracle — cosine is served by the fused
+    kernel on the GPU (XLA path on CPU; the kernel itself is pinned in
+    test_pallas.py + tests_gpu/)."""
     rng = np.random.RandomState(6)
     data = (rng.rand(1200, 10) + 0.1).astype(np.float32)
 
@@ -170,3 +170,65 @@ def test_training_parity_non_euclidean_activations(distance, kwargs):
     # similarity-type activations have denser BMU near-ties, so f32-vs-
     # float64 drift compounds faster than the euclidean 5e-4 bound
     assert abs(qe_s - qe_g) / qe_g < 2e-3, (distance, qe_s, qe_g)
+
+
+_XLA_ACTIVATIONS = [("manhattan", {})] + [
+    ("norm_p", {"p": p}) for p in (1, 1.5, 2.5, 3, 4)
+]
+
+
+@pytest.mark.parametrize("topology", ["rectangular", "hexagonal"])
+@pytest.mark.parametrize(
+    "distance,kwargs", _XLA_ACTIVATIONS,
+    ids=[f"{d}{k.get('p', '')}" for d, k in _XLA_ACTIVATIONS],
+)
+def test_xla_activation_matches_golden(distance, kwargs, topology):
+    """The activations with no fused kernel take the XLA reference path
+    on every backend: BMUs at the initial weights, one epoch's weights
+    and the trained QE against the float64 golden model."""
+    rng = np.random.RandomState(12)
+    data = (rng.rand(600, 5) + 0.1).astype(np.float32)
+    kw = dict(sigma=2.0, topology=topology, random_seed=4)
+    som = XPySom(
+        6, 6, 5, activation_distance=distance,
+        activation_distance_kwargs=kwargs, **kw,
+    )
+    golden = GoldenSom(6, 6, 5, distance=distance, distance_kwargs=kwargs, **kw)
+    assert np.mean(som.predict(data) == golden.bmu(data)) > 0.995
+    som.train(data, 4, iter_end=1)
+    golden.train(data, 4, iter_end=1)
+    np.testing.assert_allclose(som._weights, golden.weights, rtol=1e-3, atol=1e-4)
+    som.train(data, 4, iter_beg=1)
+    golden.train(data, 4, iter_beg=1)
+    qe_s, qe_g = som.quantization_error(data), golden.quantization_error(data)
+    assert abs(qe_s - qe_g) / qe_g < 2e-3, (qe_s, qe_g)
+
+
+@pytest.mark.parametrize(
+    "n, cols, nodes, scale",
+    [(4096, 65, 256, 1.0), (1000, 8, 10, 1e6), (64, 3, 5, 1e-20), (70000, 4, 7, 3.0)],
+)
+def test_scatter_sum_order_independent_and_exact(n, cols, nodes, scale):
+    """The statistics' scatter: the same total whatever order the rows
+    come in (bit for bit), at least as close to float64 as an f32
+    scatter-add, and NaN for a column holding a non-finite value."""
+    import jax
+    import jax.numpy as jnp
+
+    from xpysom_dask_tpu.core import scatter_sum
+
+    rng = np.random.default_rng(n)
+    rows = (rng.standard_normal((n, cols)) * scale).astype(np.float32)
+    idx = rng.integers(0, nodes, n)
+    run = jax.jit(scatter_sum, static_argnums=2)
+    got = np.asarray(run(jnp.asarray(idx), jnp.asarray(rows), nodes))
+    perm = rng.permutation(n)
+    again = np.asarray(run(jnp.asarray(idx[perm]), jnp.asarray(rows[perm]), nodes))
+    np.testing.assert_array_equal(again, got)
+    ref = np.zeros((nodes, cols))
+    np.add.at(ref, idx, rows.astype(np.float64))
+    f32 = np.asarray(jnp.zeros((nodes, cols)).at[idx].add(rows))
+    assert np.abs(got - ref).max() <= np.abs(f32 - ref).max()
+    rows[0, 0] = np.inf
+    bad = np.asarray(run(jnp.asarray(idx), jnp.asarray(rows), nodes))
+    assert np.isnan(bad[:, 0]).all() and np.isfinite(bad[:, 1:]).all()

@@ -1,9 +1,10 @@
-"""xpysom_dask_tpu — TPU-native batch Self-Organizing Maps.
+"""xpysom_dask_tpu — batch Self-Organizing Maps in JAX.
 
-A from-scratch rebuild of XPySom-Dask (jcfaracco/xpysom-dask) for TPU:
-the NumPy/CuPy ``xp`` backend becomes a jitted JAX/XLA functional core with
-Pallas MXU kernels on the hot path, and Dask data-parallelism becomes
-``shard_map`` over a ``jax.sharding.Mesh`` with on-ICI ``psum`` reductions.
+A from-scratch rebuild of XPySom-Dask (jcfaracco/xpysom-dask): the
+NumPy/CuPy ``xp`` backend becomes a jitted JAX/XLA functional core with a
+fused Pallas BMU kernel on the GPU hot path, and Dask data-parallelism
+becomes ``shard_map`` over a ``jax.sharding.Mesh`` with ``psum``
+reductions.
 
 Public surface mirrors the reference package root (``__init__.py:1``):
 ``XPySom`` is the headline export; the ops/parallel/utils layers are

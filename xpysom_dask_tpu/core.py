@@ -1,14 +1,14 @@
-"""Functional training/inference core of the TPU-native batch SOM.
+"""Functional training/inference core of the batch SOM.
 
 This module replaces the imperative training loop of the reference
 (``xpysom_dask/xpysom.py:458-594``) with pure, jit-compiled functions over
-static-shaped, pre-chunked data. Key TPU-first redesigns versus the
-reference:
+static-shaped, pre-chunked data. Key redesigns versus the reference:
 
-- **BMU search** is the dominant FLOPs cost and stays a big MXU matmul
-  (``-2 x@Wᵀ + ‖w‖²`` + argmin; reference distances.py:11-23,
-  xpysom.py:410-417). A fused Pallas kernel backs it on TPU (see
-  ``ops/pallas``); the XLA formulation here is the portable fallback.
+- **BMU search** is the dominant FLOPs cost: a GEMM
+  (``-2 x@Wᵀ + ‖w‖²``) plus argmin (reference distances.py:11-23,
+  xpysom.py:410-417). On the GPU a fused Pallas kernel does both without
+  writing the distance matrix (``ops.pallas.bmu``); the XLA formulation
+  here is the portable reference path.
 
 - **The codebook update is reformulated around per-BMU sufficient
   statistics.** The reference materializes the neighborhood tensor
@@ -25,7 +25,8 @@ reference:
   the codebook to every Dask task and reduces partial accumulators on the
   driver once per epoch (xpysom.py:545-558). Here each device accumulates
   ``(S, cnt)`` over its data shard and a single ``psum`` over the ``data``
-  mesh axis reduces them on-ICI; the (tiny) codebook update then runs
+  mesh axis reduces them on the device interconnect; the (tiny) codebook
+  update then runs
   replicated. No host round-trip inside an epoch.
 
 - In-place accumulators become ``lax.scan`` carries; ragged final chunks
@@ -50,7 +51,7 @@ import numpy as np
 from jax.sharding import Mesh, PartitionSpec as P
 
 from .ops.decays import DECAY_REGISTRY
-from .ops.distances import DistanceFunction, euclidean_squared_distance_part
+from .ops.distances import DistanceFunction
 from .ops.neighborhoods import apply_operator, neighborhood_operator
 from .utils.envflags import env_flag
 
@@ -82,6 +83,47 @@ class _FromEnv:
 FROM_ENV = _FromEnv()
 
 
+# BMU precision modes: the kernel's operand layouts (ops.pallas.bmu.MODES)
+# plus 'highest', the f32 XLA reference.
+PRECISIONS = ("packed", "bf16", "split2", "highest")
+
+
+def _env_mode(default="packed") -> str:
+    """``XPYSOM_BMU_PRECISION``, read at spec construction. An
+    unrecognized value warns and falls back to ``default`` (a stale env
+    var must not break every constructor in the process; explicit kwargs
+    raise instead)."""
+    m = os.environ.get("XPYSOM_BMU_PRECISION", "").lower()
+    if m in PRECISIONS:
+        return m
+    if m:
+        import warnings
+
+        warnings.warn(
+            f"XPYSOM_BMU_PRECISION={m!r} not recognized "
+            f"(expected {'|'.join(PRECISIONS)}); using {default!r}"
+        )
+    return default
+
+
+def _env_tiles():
+    """``XPYSOM_BMU_TILES=BNxBJ[xWARPSxSTAGES]``, read at spec
+    construction; None (unset or invalid, with a warning) means the
+    kernel's per-width block table."""
+    s = os.environ.get("XPYSOM_BMU_TILES", "")
+    if not s:
+        return None
+    from .ops.pallas.bmu import validate_blocks
+
+    try:
+        return validate_blocks(s.lower().split("x"))
+    except ValueError as e:
+        import warnings
+
+        warnings.warn(f"XPYSOM_BMU_TILES={s!r} ignored: {e}")
+        return None
+
+
 @dataclass(frozen=True)
 class SomSpec:
     """Static (hashable) SOM configuration — everything that shapes the
@@ -108,100 +150,47 @@ class SomSpec:
     # the reference's constructor-kwargs-only config bar — SURVEY §5,
     # reference xpysom.py:73-161). These are PART OF the hashable spec, so
     # every jit cache keys on them: switching modes in one process simply
-    # compiles a second executable (no trace-time env staleness).
-    # OMITTED fields (the ``FROM_ENV`` sentinel default) are resolved from
-    # the XPYSOM_* env switches in ``__post_init__`` — i.e. ONCE, when the
-    # spec is constructed. That is the single env boundary for the whole
-    # compute path (round 4, VERDICT r3 #5): no traced/jitted code reads
-    # os.environ anymore. Passing a CONCRETE value — including ``None``,
-    # which means "the kernels' defaults" ('packed' / the measured tile
-    # table / pallas-on) — is env-blind: ``XPySom`` stores its resolved
-    # values and builds its spec with them, so an already-constructed
-    # model can never pick up a later env change (its spec property would
-    # otherwise re-resolve on every access).
-    bmu_precision: object = FROM_ENV  # packed|bf16|split2|split3|highest|margin
-    bmu_tiles: object = FROM_ENV  # (TN, TJ) kernel tiles; None = table
+    # compiles a second executable. OMITTED fields (the ``FROM_ENV``
+    # sentinel default) are resolved from the XPYSOM_* env switches in
+    # ``__post_init__`` — ONCE, when the spec is constructed; no traced
+    # code reads os.environ. A CONCRETE value — including ``None``, which
+    # means the defaults ('packed' / the per-width block table / kernel
+    # on) — is env-blind: ``XPySom`` stores its resolved values, so an
+    # already-constructed model never picks up a later env change.
+    bmu_precision: object = FROM_ENV  # one of PRECISIONS
+    bmu_tiles: object = FROM_ENV  # (BN, BJ[, warps, stages]); None = table
     use_pallas: object = FROM_ENV  # False = plain-XLA BMU formulation
 
     def __post_init__(self):
-        # Env switches are read HERE, at spec construction, never at trace
-        # time — a later env change simply does not apply to already-built
-        # specs (it can never go *silently* stale mid-process the way a
-        # trace-time read cached by jit could). Concrete field values win.
-        # The resolved values participate in the spec's hash/eq, so every
-        # jit and lru cache keys on them.
+        # Concrete field values win over env; the resolved values take
+        # part in the spec's hash/eq, so every jit and lru cache keys on
+        # them.
         if self.use_pallas is FROM_ENV:
             object.__setattr__(
-                self,
-                "use_pallas",
-                not env_flag("XPYSOM_TPU_NO_PALLAS"),
+                self, "use_pallas", not env_flag("XPYSOM_NO_PALLAS")
             )
         elif self.use_pallas is not None:
             object.__setattr__(self, "use_pallas", bool(self.use_pallas))
         if self.bmu_precision is FROM_ENV:
-            from .ops.pallas.bmu import _env_mode
-
-            # norm_p's binomial-expansion kernel cancels catastrophically
-            # below exact precision (ops.pallas.bmu.bmu_norm_p_even)
-            mode = _env_mode(
-                default="highest" if self.distance == "norm_p" else "packed"
-            )
-            if self.distance == "norm_p" and mode != "highest":
-                # a process-global env var set for an unrelated euclidean
-                # experiment must not silently degrade norm_p's mandatory
-                # exactness (or break construction via 'margin'); only an
-                # EXPLICIT kwarg may override the 'highest' rule
-                import warnings
-
-                warnings.warn(
-                    f"XPYSOM_BMU_PRECISION={mode!r} ignored for norm_p "
-                    "activations (the binomial expansion cancels below "
-                    "exact precision); using 'highest' — pass "
-                    "bmu_precision= explicitly to override"
-                )
-                mode = "highest"
-            object.__setattr__(self, "bmu_precision", mode)
+            object.__setattr__(self, "bmu_precision", _env_mode())
         elif self.bmu_precision is not None:
-            # concrete values are validated HERE, at the config boundary,
-            # not at first kernel trace (far from the mistake)
+            # validated HERE, at the config boundary, not at first trace
             mode = str(self.bmu_precision).lower()
-            if mode not in (
-                "packed", "bf16", "split2", "split3", "highest", "margin"
-            ):
+            if mode not in PRECISIONS:
                 raise ValueError(
                     f"bmu_precision={self.bmu_precision!r} not recognized "
-                    "(packed|bf16|split2|split3|highest|margin)"
-                )
-            if mode == "margin" and self.distance == "norm_p":
-                raise ValueError(
-                    "bmu_precision='margin' is not supported with norm_p "
-                    "activations (the expansion's cancellation defeats the "
-                    "margin gate); use 'highest'"
+                    f"({'|'.join(PRECISIONS)})"
                 )
             object.__setattr__(self, "bmu_precision", mode)
         if self.bmu_tiles is FROM_ENV:
-            from .ops.pallas.bmu import _env_tiles
-
-            # resolves to None when the env is unset too: None = the
-            # kernels' measured per-width default table (concrete)
             object.__setattr__(self, "bmu_tiles", _env_tiles())
         elif self.bmu_tiles is not None:
-            # coerce to a tuple (a list would silently break the spec's
-            # hashability, surfacing as a TypeError deep in lru_cache)
-            # and validate the tile contract
-            try:
-                tn, tj = (int(v) for v in self.bmu_tiles)
-            except (TypeError, ValueError):
-                raise ValueError(
-                    f"bmu_tiles={self.bmu_tiles!r} invalid: expected a "
-                    "(TN, TJ) pair"
-                )
-            if tn <= 0 or tj <= 0 or tn % 8 or tj % 128:
-                raise ValueError(
-                    f"bmu_tiles={self.bmu_tiles!r} invalid: TN must be a "
-                    "positive multiple of 8 and TJ of 128"
-                )
-            object.__setattr__(self, "bmu_tiles", (tn, tj))
+            from .ops.pallas.bmu import validate_blocks
+
+            # a tuple, never a list: the spec must stay hashable
+            object.__setattr__(
+                self, "bmu_tiles", validate_blocks(self.bmu_tiles)
+            )
 
     @property
     def xy(self) -> int:
@@ -266,232 +255,141 @@ def _neighborhood_op(spec: SomSpec, sigma):
     )
 
 
-# Widest feature dimension the fused kernel accepts (tiles shrink with D,
-# see ops.pallas.bmu._tiles_for; beyond this even minimum tiles blow the
-# VMEM budget and Mosaic compilation OOMs).
-_PALLAS_MAX_D = 2048
+def _pallas_bmu_kind(
+    dist: DistanceFunction, d_dim: int, use_pallas=None, mode=None
+):
+    """Which fused BMU kernel serves this search: 'euclidean' / 'cosine'
+    (the Hopper kernel, ``ops.pallas.bmu``; cosine rides it through the
+    normalised codebook) or None (the XLA reference: distance matrix +
+    argmin, ``ops.distances``).
 
+    The kernel runs on the ``gpu`` backend only; every other activation,
+    ``bmu_precision='highest'``, features wider than the kernel's
+    ``MAX_D`` and ``use_pallas=False`` (the reference's ``_no_opt``
+    pattern, tests.py:24-31) take the XLA path. Runs at trace time and
+    reads no env: the ``XPYSOM_NO_PALLAS`` switch is resolved into
+    ``use_pallas`` at spec construction."""
+    from .ops.pallas.bmu import MAX_D
 
-# Widest unrolled feature loop for the fused Manhattan BMU kernel.
-_PALLAS_MANHATTAN_MAX_D = 256
-
-
-# Trace-time op budget for the elementwise L^p kernels: their bodies
-# unroll ~d·(p+1) vector ops per tile step (the D loop times the p-power
-# multiply chain), so an unbounded p would blow up the traced program and
-# the remote Mosaic compile even at small D (review, round 5). Mirrors
-# the even-p gate's d·(p+1) feature-width bound; beyond it the XLA path
-# computes the same metric through a single pow HLO.
-_ELEMENTWISE_UNROLL_BUDGET = 2048
-
-
-def _pallas_bmu_kind(dist: DistanceFunction, d_dim: int, use_pallas=None):
-    """Which fused Pallas BMU kernel (if any) serves this activation on
-    the current backend: 'euclidean' / 'cosine' (augmented-GEMM kernel;
-    cosine rides it via the normalized codebook) / 'manhattan' (unrolled
-    L1 tile kernel) / None (plain-XLA distance matrix + argmin).
-
-    ``use_pallas`` is the spec-level switch (``SomSpec.use_pallas`` /
-    the ``XPySom(use_pallas=...)`` constructor kwarg): ``False`` forces
-    the XLA formulation (the reference's ``_no_opt`` pattern,
-    tests.py:24-31), ``True``/``None`` commit to the kernel (backend and
-    width budgets still gate — a kernel that cannot compile is never
-    forced). The ``XPYSOM_TPU_NO_PALLAS`` kill-switch is resolved into
-    ``use_pallas`` at SPEC CONSTRUCTION (``SomSpec.__post_init__``), not
-    here: this function runs at trace time and must not read env."""
-    if use_pallas is False:
+    if use_pallas is False or mode == "highest":
         return None
-    try:
-        if jax.default_backend() != "tpu":
-            return None
-    except Exception:  # pragma: no cover
+    if jax.default_backend() != "gpu":
         return None
-    if dist.name in ("euclidean", "cosine") and d_dim <= _PALLAS_MAX_D:
+    if dist.name in ("euclidean", "cosine") and d_dim <= MAX_D:
         return dist.name
-    if dist.name == "manhattan" and d_dim <= _PALLAS_MANHATTAN_MAX_D:
-        return "manhattan"
-    if dist.name == "norm_p":
-        p = dist.kwargs.get("p", 2)
-        if float(p).is_integer():
-            # int() truncation without the is_integer() guard would
-            # silently dispatch a fractional p to the wrong metric
-            ip = int(p)
-            # ip >= 2: p=0 and negative even p have no binomial-expansion
-            # kernel (range(p+1) would be empty) — they keep the XLA path,
-            # which computes them fine via pow
-            if ip >= 2 and ip % 2 == 0 and d_dim * (ip + 1) <= _PALLAS_MAX_D:
-                return "norm_p_even"
-            # odd p (round 5, VERDICT r4 #7): the elementwise VPU kernel,
-            # same D gate as the L1 kernel it extends, plus the trace-time
-            # unroll budget (the kernel body is d·(p+1) unrolled vector
-            # ops — an unbounded p would hang the remote Mosaic compile)
-            if (
-                ip % 2 == 1
-                and ip >= 1
-                and d_dim <= _PALLAS_MANHATTAN_MAX_D
-                and d_dim * (ip + 1) <= _ELEMENTWISE_UNROLL_BUDGET
-            ):
-                return "norm_p_odd"
-        elif (
-            float(p) > 0
-            and d_dim <= _PALLAS_MANHATTAN_MAX_D
-            # the frac kernel unrolls d·(⌊p⌋+3)-ish ops (⌊p⌋ muls + the
-            # transcendental remainder per dim) — same budget as odd
-            and d_dim * (int(float(p)) + 1) <= _ELEMENTWISE_UNROLL_BUDGET
-        ):
-            # fractional p (round 5 close-out): the exp/log elementwise
-            # kernel — same pow-lowering identity as the XLA broadcast
-            # path, so fidelity class is unchanged and only the
-            # O(chunk·XY·D) transient goes away (bmu_norm_p_frac)
-            return "norm_p_frac"
     return None
 
 
 def _bmu_config(spec: Optional["SomSpec"]):
     """(use_pallas, mode, tiles) for the kernel dispatch. A spec carries
-    them as hashable fields so every jit cache keys on them. A ``None``
-    spec (direct core users) yields all-None, which the kernels treat as
-    their own defaults ('packed' / the measured tile table / pallas-on)
-    — the kernels are env-blind since round 4; env resolution happens
-    only at spec construction (``SomSpec.__post_init__``)."""
+    them as hashable fields so every jit cache keys on them; a ``None``
+    spec (direct core users) means the defaults (kernel on where it
+    exists, 'packed', the per-width block table)."""
     if spec is None:
         return None, None, None
     return spec.use_pallas, spec.bmu_precision, spec.bmu_tiles
 
 
-def _bmu_chunk(dist: DistanceFunction, x, w_flat, w_sq, spec=None):
-    """Flat BMU indices for one chunk (reference xpysom.py:410-417).
-    First-index tie-breaking matches NumPy/CuPy argmin. On TPU the
-    euclidean, cosine and manhattan activations run fused Pallas kernels
-    (distance tile never leaves VMEM); otherwise distance matrix + argmin
-    in XLA. The euclidean kernel is centered by the codebook mean —
-    translation-invariant for the argmin, and it shrinks the bf16-split
-    error floor on non-origin-centered data (see bmu_euclidean).
+def codebook_center(w_flat):
+    """Per-feature midrange ``(min + max) / 2`` of the codebook: the
+    kernel's translation center. Min and max reduce exactly in any order,
+    so a codebook sharded over devices gets the same center to the last
+    bit (a mean would not), and sharded searches match unsharded ones."""
+    return 0.5 * (jnp.min(w_flat, axis=0) + jnp.max(w_flat, axis=0))
 
-    ``spec`` (optional) supplies the first-class kernel config
-    (``use_pallas`` / ``bmu_precision`` / ``bmu_tiles``); ``dist`` is
-    passed separately because QE/quantization search by euclidean
-    distance regardless of the activation (reference xpysom.py:632-645)
-    while still honoring the SOM's kernel config."""
+
+def bmu_searcher(
+    dist: DistanceFunction, w_flat, w_sq=None, spec=None, *, top2=False,
+    center=None,
+):
+    """Build ``search(x) -> (idx, val)`` — or ``(idx, val, idx2, val2)``
+    with ``top2`` — for one codebook (reference xpysom.py:410-417,
+    731-734). First-index tie-breaking matches NumPy/CuPy argmin; top-2
+    follows a stable argsort.
+
+    Build it OUTSIDE a scan over chunks: the kernel's codebook operands
+    (bf16 splits, padding) are then prepared once per codebook.
+
+    ``spec`` supplies the kernel config (``use_pallas`` /
+    ``bmu_precision`` / ``bmu_tiles``); ``dist`` is separate because
+    QE/TE search by euclidean distance whatever the activation
+    (reference xpysom.py:632-645) while honouring the SOM's config. The
+    euclidean kernel is centred by ``center`` (default:
+    ``codebook_center``) — translation-invariant for the argmin, it
+    shrinks the bf16-split error for data away from the origin; its
+    values shift by a per-sample constant."""
     use_pallas, mode, tiles = _bmu_config(spec)
-    kind = _pallas_bmu_kind(dist, x.shape[-1], use_pallas)
-    if kind == "euclidean":
-        from .ops.pallas.bmu import bmu_euclidean
+    kind = _pallas_bmu_kind(dist, w_flat.shape[-1], use_pallas, mode)
+    if kind is not None:
+        from .ops.pallas import bmu as kernel
 
-        idx, _ = bmu_euclidean(
-            x, w_flat, w_sq, center=jnp.mean(w_flat, axis=0),
-            mode=mode, tiles=tiles,
-        )
-        return idx
-    if kind == "cosine":
-        from .ops.pallas.bmu import bmu_cosine
+        kw = dict(mode=mode or "packed", top2=top2, blocks=tiles)
+        if kind == "cosine":
+            return kernel.cosine_searcher(w_flat, **kw)
+        if center is None:
+            center = codebook_center(w_flat)
+        return kernel.searcher(w_flat, center=center, **kw)
 
-        idx, _ = bmu_cosine(x, w_flat, mode=mode, tiles=tiles)
-        return idx
-    if kind == "manhattan":
-        from .ops.pallas.bmu import bmu_manhattan
+    def search(x):
+        d = dist.flat(x, w_flat, w_sq)
+        if top2:
+            neg, idx = jax.lax.top_k(-d, 2)  # stable: lower index first
+            idx = idx.astype(jnp.int32)
+            return idx[:, 0], -neg[:, 0], idx[:, 1], -neg[:, 1]
+        return jnp.argmin(d, axis=1).astype(jnp.int32), jnp.min(d, axis=1)
 
-        # Always the exact serial form: the round-3 slope-decontaminated
-        # ranking (BASELINE.md, tools/r3_results.jsonl) put every
-        # alternative BEHIND it at (16384, 16384, 64) — serial 11.01,
-        # split2 12.53, split4 13.78, bf16 stream 16.41 ms/exec — so the
-        # L1 kernel's VPU bound is precision-independent and reduced
-        # precision would cost fidelity for NEGATIVE speed. The accum
-        # variants remain on bmu_manhattan for benchmarking.
-        idx, _ = bmu_manhattan(x, w_flat, tiles=tiles, accum="serial")
-        return idx
-    if kind == "norm_p_even":
-        from .ops.pallas.bmu import bmu_norm_p_even
-
-        # norm_p's own default is 'highest' (the binomial expansion
-        # cancels catastrophically in reduced precision — see
-        # bmu_norm_p_even); an explicit spec precision overrides it.
-        idx, _ = bmu_norm_p_even(
-            x, w_flat, p=int(dist.kwargs.get("p", 2)),
-            mode=mode if mode is not None else "highest", tiles=tiles,
-        )
-        return idx
-    if kind == "norm_p_odd":
-        from .ops.pallas.bmu import bmu_norm_p_odd
-
-        # exact f32 elementwise kernel — precision modes don't apply
-        # (like the L1 kernel); the win is the O(N) transient envelope.
-        # No default: the gate routes here only when kwargs carry an odd
-        # p (a .get default of 2 would be one the kernel itself rejects)
-        idx, _ = bmu_norm_p_odd(
-            x, w_flat, p=int(dist.kwargs["p"]), tiles=tiles
-        )
-        return idx
-    if kind == "norm_p_frac":
-        from .ops.pallas.bmu import bmu_norm_p_frac
-
-        # same fidelity class as the XLA pow lowering (both go through
-        # exp(frac·log t)); the win is the O(N) transient envelope.
-        # No default: the gate routes here only for non-integer p
-        idx, _ = bmu_norm_p_frac(
-            x, w_flat, p=float(dist.kwargs["p"]), tiles=tiles
-        )
-        return idx
-    d = dist.flat(x, w_flat, w_sq)
-    return jnp.argmin(d, axis=1).astype(jnp.int32)
+    return search
 
 
-def _use_mosaic_scatter(spec, xy: int, d_dim: int) -> bool:
-    """Route the sufficient-statistics scatter to the Pallas VMEM-
-    accumulator kernel? OFF by default: the kernel's standalone 3.5×
-    win over the XLA scatter-add was an isolation artifact — measured
-    *in training context* (one window, slope method,
-    tools/r3_epoch_anatomy.py) the Mosaic scatter costs 7.8 ms/epoch on
-    the flagship vs 3.2 for XLA, a 12% end-to-end regression, because
-    the serial row-RMW loop cannot overlap the adjacent BMU kernel the
-    way XLA's scatter overlaps its neighbors (BASELINE.md round 3,
-    'scatter retraction'). Opt-in via ``XPYSOM_MOSAIC_SCATTER=1``
-    (benchmark hook) for re-measurement on future toolchains; still
-    requires the TPU backend and the accumulator to fit the Mosaic VMEM
-    budget (ops/pallas/stats.fits_vmem).
-
-    EAGER resolver: called from factory bodies (``make_epoch_step`` /
-    ``make_stats_fn``) when the executable is built, never under trace —
-    the env read happens at build time, the traced step closes over the
-    resulting boolean."""
-    if not env_flag("XPYSOM_MOSAIC_SCATTER"):
-        return False
-    use_pallas, _, _ = _bmu_config(spec)
-    if use_pallas is False:
-        return False
-    try:
-        if jax.default_backend() != "tpu":
-            return False
-    except Exception:  # pragma: no cover
-        return False
-    from .ops.pallas.stats import fits_vmem
-
-    return fits_vmem(xy, d_dim)
+def _bmu_chunk(dist: DistanceFunction, x, w_flat, w_sq, spec=None):
+    """Flat BMU indices for one chunk (one-shot ``bmu_searcher``)."""
+    return bmu_searcher(dist, w_flat, w_sq, spec)(x)[0]
 
 
 def _use_split_scatter(d_dim: int) -> bool:
     """Scatter ``S`` and ``cnt`` separately instead of as one augmented
-    ``[x | 1]`` row? Auto-on exactly when the +1 column crosses a
-    128-lane tile boundary (``d_dim % 128 == 0``): TPU HBM layouts pad
-    the minor dim to 128-lane multiples, so the augmented row then
-    carries a whole extra lane tile of scatter RMW traffic for one
-    useful column (D=512: 513→640 lanes, +25%; D=128: 129→256, +100%),
-    while the split keeps the S scatter at exact lanes and the cnt
-    scatter is a tiny (N,)→(XY,) add. When D+1 rounds to the same tile
-    (e.g. the D=64 flagship, 65→128 either way) the single fused
-    scatter wins — one scatter pass instead of two.
-    ``XPYSOM_SPLIT_SCATTER`` forces (measurement hook): unset/empty =
-    this auto rule; otherwise the same truthiness grammar as every other
-    XPYSOM_* switch ('0'/'false'/'no'/'off' force fused, else split).
+    ``[x | 1]`` row? Auto-on when ``d_dim`` is a multiple of 128, where
+    the +1 column would start a new 128-wide layout tile. The rule comes
+    from a layout that pads rows to 128 lanes; it is not measured on the
+    GPU yet (ROADMAP). ``XPYSOM_SPLIT_SCATTER`` forces either way: unset/empty =
+    this rule; otherwise the truthiness grammar of every XPYSOM_* switch.
 
     EAGER resolver: called from factory bodies when the executable is
-    built, never under trace (see ``_use_mosaic_scatter``)."""
+    built, never under trace."""
     from .utils.envflags import env_tristate
 
     forced = env_tristate("XPYSOM_SPLIT_SCATTER")
     if forced is not None:
         return forced
     return d_dim >= 128 and d_dim % 128 == 0
+
+
+def scatter_sum(idx, rows, n_out: int):
+    """``zeros((n_out, C)).at[idx].add(rows)`` for ``rows (N, C)`` float32,
+    with a result that does not depend on the order of the additions.
+
+    The GPU's scatter-add sums rows that share an index in whatever order
+    its atomics land, so an f32 total changes in the last bits from run to
+    run, and on a trained codebook a near-tied winner then flips and the
+    runs part. Here each column is scaled by a power of two to its
+    maximum over the chunk and cut into two fixed-point int32 limbs of
+    ``L = 30 − ⌈log₂ N⌉`` bits; integer sums are exact in any order, and
+    each total becomes f32 once. ``2L`` bits relative to the column's
+    largest row (32 at 16384 rows) is finer than the f32 rounding of a
+    sequential sum. A column with a non-finite row gives NaN."""
+    n, c = rows.shape
+    lbits = 30 - max(n - 1, 1).bit_length()  # N · 2^L ≤ 2^30 per limb sum
+    step = float(2**lbits)
+    peak = jnp.max(jnp.abs(rows), axis=0)
+    _, e = jnp.frexp(peak)  # |rows| < 2^e column by column
+    y = jnp.ldexp(rows, lbits - e)  # exact: a power-of-two scaling
+    hi = jnp.floor(y)
+    lo = jnp.round((y - hi) * step)  # y - hi is exact, in [0, 1)
+    limbs = jnp.concatenate([hi, lo], axis=1).astype(jnp.int32)
+    acc = jnp.zeros((n_out, 2 * c), jnp.int32).at[idx].add(limbs)
+    out = acc[:, :c].astype(_F32) + acc[:, c:].astype(_F32) * (1.0 / step)
+    out = jnp.ldexp(out, e - lbits)
+    return jnp.where(jnp.isfinite(peak), out, jnp.nan)
 
 
 def _accumulate_stats(
@@ -503,75 +401,66 @@ def _accumulate_stats(
     xy,
     spec=None,
     *,
-    mosaic_scatter=None,
     split_scatter=None,
+    init=None,
 ):
     """Scan chunks, scatter-accumulating per-BMU sufficient statistics
-    ``S[b] = Σ x_n`` and ``cnt[b] = Σ 1`` (masked rows contribute zero).
+    ``S[b] = Σ x_n`` and ``cnt[b] = Σ 1`` (masked rows contribute zero;
+    ``scatter_sum`` makes each chunk's sums independent of the device's
+    addition order, so a run repeats to the bit),
+    starting from zeros or from ``init = (S, cnt)``: a stream continues
+    the scan across superbatches, so its additions happen in the order of
+    one resident scan over the same chunks.
 
-    ``S`` and ``cnt`` ride ONE scatter of the augmented rows ``[x | 1]·m``
-    through the XLA scatter-add — the measured winner IN TRAINING CONTEXT
-    (3.2 ms/epoch on the flagship vs 7.8 for the Pallas VMEM-accumulator
-    kernel, whose standalone 3.5× was an isolation artifact; one-window
-    slope anatomy, BASELINE.md round 3). The Mosaic kernel
-    (``ops/pallas/stats.py``) stays behind ``XPYSOM_MOSAIC_SCATTER=1``
-    as a re-measurement hook. At lane-boundary widths the augmented row
-    pads a whole extra 128-lane tile, so there the scatter splits into
-    separate S / cnt scatters instead (``_use_split_scatter``).
+    ``S`` and ``cnt`` ride ONE XLA scatter-add of the augmented rows
+    ``[x | 1]·m``, or two separate scatters when ``split_scatter``
+    (``_use_split_scatter``; factories resolve it at build time, ``None``
+    resolves at call time).
 
     Each chunk scatters into a *fresh* per-chunk partial which is then
     added to the carry: scattering +1.0 rows directly into a large f32
     total silently drops increments once a node's count passes 2^24
     (f32 ulp = 2); chunk-sized partials keep every addend representable
-    at huge-N scale (the residual is ≤1 ulp per chunk-total add).
-
-    ``mosaic_scatter``/``split_scatter`` select the scatter formulation.
-    The library's factories resolve them EAGERLY at build time
-    (``_use_mosaic_scatter``/``_use_split_scatter``) and pass concrete
-    booleans, keeping env reads out of traced code; ``None`` (direct
-    callers — measurement tools) resolves at call time, which is trace
-    time if you call this under your own jit."""
+    at huge-N scale (the residual is ≤1 ulp per chunk-total add)."""
 
     d_dim = data.shape[-1]
-    if mosaic_scatter is None:
-        mosaic_scatter = _use_mosaic_scatter(spec, xy, d_dim)
     if split_scatter is None:
-        split_scatter = not mosaic_scatter and _use_split_scatter(d_dim)
+        split_scatter = _use_split_scatter(d_dim)
+    search = bmu_searcher(dist, w_flat, w_sq, spec)
 
     if split_scatter:
 
         def body(carry, xs):
             s_acc, c_acc = carry
             x, m = xs
-            bmu = _bmu_chunk(dist, x, w_flat, w_sq, spec)
+            bmu = search(x)[0]
             xm = x * m[:, None]
-            s_part = jnp.zeros((xy, d_dim), dtype=_F32).at[bmu].add(xm)
-            c_part = jnp.zeros((xy,), dtype=_F32).at[bmu].add(m)
+            s_part = scatter_sum(bmu, xm, xy)
+            c_part = jnp.zeros((xy,), dtype=_F32).at[bmu].add(m)  # exact
             return (s_acc + s_part, c_acc + c_part), None
 
-        init = (
-            jnp.zeros((xy, d_dim), dtype=_F32),
-            jnp.zeros((xy,), dtype=_F32),
-        )
-        (s, cnt), _ = jax.lax.scan(body, init, (data, mask))
+        if init is None:
+            init = (
+                jnp.zeros((xy, d_dim), dtype=_F32),
+                jnp.zeros((xy,), dtype=_F32),
+            )
+        (s, cnt), _ = jax.lax.scan(body, tuple(init), (data, mask))
         return s, cnt
 
     def body(carry, xs):
         x, m = xs
-        bmu = _bmu_chunk(dist, x, w_flat, w_sq, spec)
-        if mosaic_scatter:
-            from .ops.pallas.stats import scatter_stats
-
-            part = scatter_stats(x, m, bmu, xy, return_acc=True)
-        else:
-            aug = (
-                jnp.concatenate([x, jnp.ones((x.shape[0], 1), _F32)], axis=1)
-                * m[:, None]
-            )
-            part = jnp.zeros((xy, d_dim + 1), dtype=_F32).at[bmu].add(aug)
+        bmu = search(x)[0]
+        aug = (
+            jnp.concatenate([x, jnp.ones((x.shape[0], 1), _F32)], axis=1)
+            * m[:, None]
+        )
+        part = scatter_sum(bmu, aug, xy)
         return carry + part, None
 
-    init = jnp.zeros((xy, d_dim + 1), dtype=_F32)
+    if init is None:
+        init = jnp.zeros((xy, d_dim + 1), dtype=_F32)
+    else:
+        init = jnp.concatenate([init[0], init[1][:, None]], axis=1)
     acc, _ = jax.lax.scan(body, init, (data, mask))
     return acc[:, :d_dim], acc[:, d_dim]
 
@@ -603,10 +492,9 @@ def make_epoch_step(spec: SomSpec, num_epochs: int, psum_axis: Optional[str] = N
     axis (for use under ``shard_map``)."""
     dist = spec.distance_fn()
     xy = spec.xy
-    # scatter-formulation env hooks resolved HERE, at build time (eager) —
-    # the traced step closes over booleans, never reads env
-    mosaic = _use_mosaic_scatter(spec, xy, spec.input_len)
-    split = not mosaic and _use_split_scatter(spec.input_len)
+    # the scatter-formulation env hook resolves HERE, at build time — the
+    # traced step closes over a boolean, never reads env
+    split = _use_split_scatter(spec.input_len)
 
     def step(w, data, mask, t):
         w_flat = w.reshape(xy, spec.input_len)
@@ -617,8 +505,7 @@ def make_epoch_step(spec: SomSpec, num_epochs: int, psum_axis: Optional[str] = N
         )
         eta, sig = _decays(spec, t, num_epochs)
         s, cnt = _accumulate_stats(
-            dist, w_flat, w_sq, data, mask, xy, spec,
-            mosaic_scatter=mosaic, split_scatter=split,
+            dist, w_flat, w_sq, data, mask, xy, spec, split_scatter=split
         )
         if psum_axis is not None:
             s = jax.lax.psum(s, psum_axis)
@@ -635,13 +522,14 @@ def make_stats_fn(spec: SomSpec, mesh: Optional[Mesh] = None):
     ``stats(w, data, mask) -> (S, cnt)`` per-BMU sufficient statistics.
     Used by the streaming pipeline to fold superbatches of an epoch that
     does not fit on device (see ``parallel.pipeline``); with a mesh the
-    shard partials are psum-reduced so the result is replicated."""
+    shard partials are psum-reduced so the result is replicated. Without
+    one, ``stats(w, data, mask, init)`` continues from the statistics
+    ``init`` of the superbatches before (``_accumulate_stats``)."""
     dist = spec.distance_fn()
     xy = spec.xy
-    mosaic = _use_mosaic_scatter(spec, xy, spec.input_len)
-    split = not mosaic and _use_split_scatter(spec.input_len)
+    split = _use_split_scatter(spec.input_len)
 
-    def run(w, data, mask):
+    def run(w, data, mask, init=None):
         w_flat = w.reshape(xy, spec.input_len)
         w_sq = (
             jnp.sum(jnp.square(w_flat), axis=1, keepdims=True)
@@ -649,8 +537,8 @@ def make_stats_fn(spec: SomSpec, mesh: Optional[Mesh] = None):
             else None
         )
         s, cnt = _accumulate_stats(
-            dist, w_flat, w_sq, data, mask, xy, spec,
-            mosaic_scatter=mosaic, split_scatter=split,
+            dist, w_flat, w_sq, data, mask, xy, spec, split_scatter=split,
+            init=init,
         )
         if mesh is not None:
             s = jax.lax.psum(s, "data")
@@ -693,8 +581,8 @@ def make_epoch_fn(spec: SomSpec, num_epochs: int, mesh: Optional[Mesh] = None):
     ``(X, Y, D)`` float32 codebook, ``data``/``mask`` are the pre-chunked
     ``(C, chunk, D)``/``(C, chunk)`` epoch inputs, and ``t`` is the (traced)
     iteration index. With a mesh, the chunk axis is sharded over the
-    ``'data'`` axis and per-shard statistics are ``psum``-reduced on-ICI —
-    the TPU-native replacement for the reference's per-epoch Dask
+    ``'data'`` axis and per-shard statistics are ``psum``-reduced on the
+    device interconnect — the replacement for the reference's per-epoch Dask
     ``delayed(sum)`` + driver ``compute`` barrier (xpysom.py:545-558)."""
     if mesh is None:
         step = make_epoch_step(spec, num_epochs)
@@ -757,8 +645,10 @@ def make_bmu_fn(spec: SomSpec, mesh: Optional[Mesh] = None):
             else None
         )
 
+        search = bmu_searcher(dist, w_flat, w_sq, spec)
+
         def body(_, x):
-            return None, _bmu_chunk(dist, x, w_flat, w_sq, spec)
+            return None, search(x)[0]
 
         _, bmu = jax.lax.scan(body, None, data)
         return bmu
@@ -790,11 +680,12 @@ def make_quantization_stats_fn(spec: SomSpec, mesh: Optional[Mesh] = None):
     def run(w, data, mask):
         w_flat = w.reshape(xy, spec.input_len)
         w_sq = jnp.sum(jnp.square(w_flat), axis=1, keepdims=True)
+        search = bmu_searcher(eucl, w_flat, w_sq, spec)
 
         def body(carry, xs):
             tot, n = carry
             x, m = xs
-            bmu = _bmu_chunk(eucl, x, w_flat, w_sq, spec)
+            bmu = search(x)[0]
             err = jnp.linalg.norm(x - w_flat[bmu], axis=1)
             return (tot + jnp.sum(err * m), n + jnp.sum(m)), None
 
@@ -818,30 +709,33 @@ def make_quantization_stats_fn(spec: SomSpec, mesh: Optional[Mesh] = None):
     return jax.jit(sharded)
 
 
+def te_spec(spec: "SomSpec") -> "SomSpec":
+    """The spec TE's top-2 search runs with: exact by contract like
+    training's, so 'split2' maps to 'packed'; 'bf16' stays opt-in and
+    'highest' stays on the XLA reference. One source of truth for the
+    single-device and 2-D grid-mesh TE paths."""
+    import dataclasses
+
+    mode = spec.bmu_precision
+    if mode not in ("bf16", "highest"):
+        mode = "packed"
+    return dataclasses.replace(spec, bmu_precision=mode)
+
+
 def te_uses_fused(spec: "SomSpec") -> bool:
-    """Whether ``topographic_error``'s top-2 BMU search runs the fused
-    Pallas kernel (``bmu_euclidean(top2=True)``) instead of materializing
-    the (chunk, XY) distance matrix for ``lax.top_k``. Euclidean by
-    definition (reference xpysom.py:731); same gating as ``_bmu_chunk``'s
-    euclidean path. Callers use this to size chunks: the fused path never
-    materializes the matrix, so it takes training-sized chunks instead of
+    """Whether ``topographic_error``'s top-2 search runs the fused kernel
+    instead of materialising the (chunk, XY) distance matrix for
+    ``lax.top_k``. Callers use this to size chunks: the fused path never
+    materialises the matrix, so it takes training-sized chunks instead of
     the ``_matrix_chunk`` budget."""
+    te = te_spec(spec)
     return (
         _pallas_bmu_kind(
-            DistanceFunction("euclidean"), spec.input_len, spec.use_pallas
+            DistanceFunction("euclidean"), spec.input_len, te.use_pallas,
+            te.bmu_precision,
         )
         == "euclidean"
     )
-
-
-def te_fused_mode(spec: "SomSpec") -> str:
-    """Precision mode for TE's fused top-2 kernel. TE's search is
-    exact-by-contract like training's: map the non-GEMM precision modes
-    onto the exact packed split (margin exists to BE exact; split3 /
-    highest are exact by other means), keep bf16 opt-in. Single source
-    of truth for the single-device and 2-D grid-mesh TE paths (review,
-    round 5)."""
-    return "bf16" if spec.bmu_precision == "bf16" else "packed"
 
 
 @lru_cache(maxsize=64)
@@ -869,37 +763,20 @@ def make_topographic_stats_fn(spec: SomSpec, mesh: Optional[Mesh] = None):
     xx = jnp.asarray(xx_np, _F32)
     yy = jnp.asarray(yy_np, _F32)
 
-    use_fused = te_uses_fused(spec)
-    fused_mode = te_fused_mode(spec)
+    te = te_spec(spec)
+    eucl = DistanceFunction("euclidean")
 
     def run(w, data, mask):
         w_flat = w.reshape(xy, spec.input_len)
         w_sq = jnp.sum(jnp.square(w_flat), axis=1, keepdims=True)
+        search = bmu_searcher(eucl, w_flat, w_sq, te, top2=True)
 
         def body(carry, xs):
             errs, n = carry
             x, m = xs
-            if use_fused:
-                # fused top-2 BMU: the (chunk, XY) distance matrix never
-                # leaves VMEM (vs materializing it for lax.top_k below —
-                # measured 225x slower at the flagship shape, BASELINE.md
-                # round 4). Centered like training's _bmu_chunk.
-                from .ops.pallas.bmu import bmu_euclidean
-
-                i1, _, i2, _ = bmu_euclidean(
-                    x,
-                    w_flat,
-                    center=jnp.mean(w_flat, axis=0),
-                    mode=fused_mode,
-                    tiles=spec.bmu_tiles,
-                    top2=True,
-                )
-                idx2 = jnp.stack([i1, i2], axis=1)
-            else:
-                d = euclidean_squared_distance_part(x, w_flat, w_sq)
-                _, idx2 = jax.lax.top_k(-d, 2)
-            b1x, b1y = idx2[:, 0] // spec.y, idx2[:, 0] % spec.y
-            b2x, b2y = idx2[:, 1] // spec.y, idx2[:, 1] % spec.y
+            i1, _, i2, _ = search(x)
+            b1x, b1y = i1 // spec.y, i1 % spec.y
+            b2x, b2y = i2 // spec.y, i2 % spec.y
             if spec.topology == "rectangular":
                 bad = (jnp.abs(b1x - b2x) > 1) | (jnp.abs(b1y - b2y) > 1)
             else:
@@ -933,14 +810,12 @@ def make_topographic_stats_fn(spec: SomSpec, mesh: Optional[Mesh] = None):
 def clear_program_caches() -> None:
     """Drop every ``lru_cache``d program factory across the package.
 
-    The scatter/kernel env hooks (``XPYSOM_SPLIT_SCATTER``,
-    ``XPYSOM_MOSAIC_SCATTER``, ...) resolve EAGERLY at factory-build
-    time — compiled programs close over booleans and never read env — so
-    flipping a hook after a program is cached has no effect on equal
-    ``(spec, num_epochs, mesh)`` keys. Measurement tools and A/B tests
-    that toggle a hook must call this between arms, or they compare a
-    cached program against itself (round-5 review: two split-scatter
-    parity tests were vacuous this way)."""
+    The scatter env hook (``XPYSOM_SPLIT_SCATTER``) resolves EAGERLY at
+    factory-build time — compiled programs close over a boolean and never
+    read env — so flipping it after a program is cached has no effect on
+    equal ``(spec, num_epochs, mesh)`` keys. A/B tests that toggle it
+    must call this between arms, or they compare a cached program against
+    itself."""
     import sys as _sys
 
     mods = [_sys.modules[__name__]]

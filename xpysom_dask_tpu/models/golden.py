@@ -1,11 +1,11 @@
-"""NumPy golden model: the parity oracle for the TPU build.
+"""NumPy golden model: the parity oracle for the JAX build.
 
 The reference test-suite uses MiniSom as numerical ground truth
 (reference tests.py:12,25,161-246). MiniSom is not vendorable here, so this
 module is an independent, deliberately *naive* NumPy implementation of the
 same math, written the way the reference computes it (materialized
 ``(N, X, Y)`` neighborhood tensor, ``gᵀ@x`` GEMM update — xpysom.py:420-443)
-— NOT the way the TPU core computes it (per-BMU sufficient statistics,
+— NOT the way the JAX core computes it (per-BMU sufficient statistics,
 factored neighborhood operator). Agreement between the two paths is
 therefore a real cross-check of the redesign, not a tautology.
 

@@ -5,23 +5,23 @@ standard SOM model-selection workflow — train many maps that differ only
 in random seed, σ schedule, or learning-rate schedule, then keep the one
 with the lowest quantization error (Kohonen's recommended practice) — runs
 serially in the reference, once per candidate
-(``/root/reference/xpysom_dask/xpysom.py:458-594`` per candidate).
+(``xpysom_dask/xpysom.py:458-594`` per candidate).
 
 Three execution strategies, selected by ``train(strategy=...)``:
 
 - ``'serial'`` (the ``'auto'`` choice for resident data): each member
-  trains through the single-model fast path — the fused Pallas BMU
-  kernel with its VMEM running-argmin carry, one whole-run
-  ``core.make_train_fn`` executable per distinct schedule (a seed-only
-  sweep compiles ONCE and reuses the executable for every member; the
-  chunked data stays device-resident across members).
+  trains through the single-model fast path — the fused BMU kernel on the
+  GPU, one whole-run ``core.make_train_fn`` executable per distinct
+  schedule (a seed-only sweep compiles ONCE and reuses the executable for
+  every member; the chunked data stays device-resident across members).
 
-- ``'fused'`` (round 5, the ``'auto'`` choice for streaming sources):
-  ``lax.map`` over the stacked ``(P, XY, D)`` codebooks with the fused
-  single-model stats body inside — per-member fused Pallas kernels
-  like 'serial', but the whole population fold is ONE executable and
-  ONE dispatch per superbatch like 'batched', and a streaming source
-  is read ONCE per epoch regardless of P.
+- ``'fused'`` (the ``'auto'`` choice for streaming sources up to
+  ``_FUSED_STREAM_MAX_NODES`` stacked nodes): ``lax.map`` over the
+  stacked ``(P, XY, D)`` codebooks with the single-model stats body
+  inside — per-member BMU searches like 'serial', but the whole
+  population fold is ONE executable and ONE dispatch per superbatch like
+  'batched', and a streaming source is read ONCE per epoch regardless
+  of P.
 
 - ``'batched'``: stack the P codebooks into ONE ``(P·XY, D)`` matrix so
   the BMU search of every member is a single concatenated GEMM per data
@@ -31,17 +31,11 @@ Three execution strategies, selected by ``train(strategy=...)``:
   ``(η_t, σ_t)`` under ``jax.vmap``; the whole P-member multi-epoch
   sweep is ONE ``lax.fori_loop`` executable.
 
-The batched program was this module's original premise — that a small
-map leaves the MXU idle and concatenation recovers it. On-chip
-measurement FALSIFIED that at sweep-sized maps (BASELINE.md round 4:
-0.60–0.75× of serial at 24×24×16, P ∈ {4, 16, 64}, v5e): the block
-argmin forces the batched path off the fused Pallas BMU kernel, and the
-unfused GEMM + reshape-argmin + vmapped scatters cost more than the
-batching saves. Round 5 closed the gap that kept it the streaming
-default anyway (a single pass serving every member): 'fused' makes the
-per-member fused program single-pass/single-dispatch too, and measured
-faster than 'batched' on-chip (BASELINE.md round 5), so 'batched'
-remains as the measurement baseline and the wide-map fallback.
+The batched program keeps the block argmin off the fused BMU kernel
+(the kernel computes one global argmin), and materialises the
+``(chunk, P·XY)`` distance matrix. Which program is fastest on the GPU
+at which sizes is not measured yet (ROADMAP); the 'auto' routing is
+carried over from measurements on another accelerator.
 
 Per-member knobs: ``random_seed``, ``sigma``, ``sigmaN``,
 ``learning_rate``, ``learning_rateN`` (scalar = shared, length-P sequence =
@@ -52,12 +46,6 @@ across the population (that is what makes the batched program one program).
 Members are real ``XPySom`` objects: ``member(i)`` (or ``best(data)``)
 returns a fully-functional model — predict/distance_map/serialization all
 work — whose weights are the population-trained codebook.
-
-The fused Pallas BMU kernel is used by the ``'serial'`` strategy (each
-member IS a single-model program) but not by ``'batched'``: the kernel
-computes one global argmin, while the concatenated path needs a
-per-member block argmin. That asymmetry is exactly what the round-4
-measurement above quantifies.
 """
 
 from __future__ import annotations
@@ -84,17 +72,10 @@ __all__ = ["SomPopulation"]
 
 _F32 = jnp.float32
 
-# Streaming-'auto' routing gate (round 5, tools/r5_results.jsonl — seven
-# on-chip rows at 24×24×16 maps): the fused lax.map-over-members program
-# beat the concatenated GEMM 1.31–1.35× at P·XY ∈ {2.3k, 9.2k} stacked
-# nodes, 1.06× at 18.4k, tied (0.99×) at 23.0k, then won AGAIN at 27.6k
-# (1.26×) and 32.3k (1.19×), losing only at 36.9k (0.84×), where the
-# concatenated GEMM finally fills the MXU while lax.map pays P sequential
-# small-kernel passes. The fused program's cost is perfectly linear
-# (~2.0 ms/member across every row); the non-monotone ratio is batched's
-# per-member cost swinging with how P·XY tiles its block argmin. The true
-# crossover sits in (32.3k, 36.9k); 32,768 routes every measured row to
-# its winner or within-noise tie (the 23.0k tie costs ≤1%).
+# Streaming-'auto' routing gate: the fused lax.map-over-members program
+# for stacked codebooks up to this many nodes (P·X·Y), the concatenated
+# GEMM beyond. The crossover was measured on another accelerator at
+# 24×24×16 maps only; it is not measured on the GPU yet (ROADMAP).
 # Model-selection sweeps live far below it (P=16 of 24×24 maps = 9.2k),
 # so 'auto' rides the fused program in practice.
 _FUSED_STREAM_MAX_NODES = 32768
@@ -141,7 +122,7 @@ def _make_pop_stats(specs, psum_axis=None):
 
         def body(carry, xs):
             x, m = xs
-            # one MXU GEMM covers every member's distance matrix
+            # one GEMM covers every member's distance matrix
             dmat = dist.flat(x, w_big, w_sq)  # (chunk, P·XY)
             bmu = jnp.argmin(
                 dmat.reshape(x.shape[0], n_pop, xy), axis=2
@@ -151,9 +132,7 @@ def _make_pop_stats(specs, psum_axis=None):
                 # core._use_split_scatter
                 s_acc, c_acc = carry
                 xm = x * m[:, None]
-                s_part = jax.vmap(
-                    lambda b: jnp.zeros((xy, d_dim), _F32).at[b].add(xm)
-                )(bmu.T)
+                s_part = jax.vmap(lambda b: core.scatter_sum(b, xm, xy))(bmu.T)
                 c_part = jax.vmap(
                     lambda b: jnp.zeros((xy,), _F32).at[b].add(m)
                 )(bmu.T)
@@ -162,9 +141,7 @@ def _make_pop_stats(specs, psum_axis=None):
                 jnp.concatenate([x, jnp.ones((x.shape[0], 1), _F32)], axis=1)
                 * m[:, None]
             )
-            part = jax.vmap(
-                lambda b: jnp.zeros((xy, d_dim + 1), _F32).at[b].add(aug)
-            )(bmu.T)
+            part = jax.vmap(lambda b: core.scatter_sum(b, aug, xy))(bmu.T)
             return carry + part, None
 
         if split:
@@ -188,25 +165,20 @@ def _make_pop_stats(specs, psum_axis=None):
 
 
 def _make_pop_stats_fused(specs, psum_axis=None):
-    """The round-5 third program (VERDICT r4 #1): per-member sufficient
-    statistics via ``lax.map`` over the stacked codebooks with the
-    single-model FUSED stats body inside — each member's BMU search runs
-    the fused Pallas kernel (VMEM running-argmin, no (chunk, XY) matrix),
-    yet the whole population fold is ONE dispatch per superbatch like the
-    concatenated program. This combines 'serial''s measured compute win
-    (the concatenated GEMM + block argmin was 0.60–0.75× of fused
-    per-member, BASELINE.md round 4) with 'batched''s dispatch economy —
-    and unlike host-side 'serial', it serves streaming sources with a
-    single pass over the data."""
+    """Per-member sufficient statistics via ``lax.map`` over the stacked
+    codebooks with the single-model stats body inside: each member's BMU
+    search is the single-model search (the fused kernel on the GPU), yet
+    the whole population fold is ONE dispatch per superbatch like the
+    concatenated program, and it serves streaming sources with a single
+    pass over the data."""
     spec0 = specs[0]
     n_pop = len(specs)
     xy = spec0.xy
     d_dim = spec0.input_len
     dist = spec0.distance_fn()
-    # scatter-formulation env hooks resolved eagerly at build time, like
+    # scatter-formulation env hook resolved eagerly at build time, like
     # core.make_epoch_step — the traced program never reads env
-    mosaic = core._use_mosaic_scatter(spec0, xy, d_dim)
-    split = not mosaic and core._use_split_scatter(d_dim)
+    split = core._use_split_scatter(d_dim)
 
     def stats(w, data, mask):
         def member(w_i):
@@ -217,8 +189,7 @@ def _make_pop_stats_fused(specs, psum_axis=None):
                 else None
             )
             return core._accumulate_stats(
-                dist, w_flat, w_sq, data, mask, xy, spec0,
-                mosaic_scatter=mosaic, split_scatter=split,
+                dist, w_flat, w_sq, data, mask, xy, spec0, split_scatter=split
             )
 
         s, cnt = jax.lax.map(member, w.reshape(n_pop, xy, d_dim))
@@ -609,31 +580,21 @@ class SomPopulation:
         """Train every member on ``data`` for epochs ``[iter_beg, iter_end)``
         of a ``num_epochs`` schedule.
 
-        ``strategy`` selects the execution plan (module docstring has the
-        measured trade-off, BASELINE.md round 4):
+        ``strategy`` selects the execution plan (module docstring):
 
         - ``'serial'``: members train one at a time through the
-          single-model fast path (fused Pallas BMU; one whole-run
-          executable per distinct schedule, reused across members; the
-          chunked data stays on device across members). Measured
-          1.3–1.7× faster per epoch than ``'batched'`` on v5e at
-          sweep-sized maps. Not available for streaming sources.
-        - ``'fused'`` (round 5): ``lax.map`` over the stacked member
-          codebooks with the fused single-model stats body inside —
-          serial's per-member fused kernels AND batched's
-          one-executable/one-dispatch property, and a single pass over
-          streaming sources. The measured streaming winner
-          (BASELINE.md round 5).
+          single-model fast path (one whole-run executable per distinct
+          schedule, reused across members; the chunked data stays on
+          device across members). Not available for streaming sources.
+        - ``'fused'``: ``lax.map`` over the stacked member codebooks with
+          the single-model stats body inside — serial's per-member
+          searches AND batched's one-executable/one-dispatch property,
+          and a single pass over streaming sources.
         - ``'batched'``: the concatenated-codebook program (one GEMM
-          covers every member's search). Measured 0.60–0.75× of the
-          fused programs at sweep-sized maps — kept as the measurement
-          baseline and for wide-map cases where a per-member kernel
-          pass underfills the MXU.
+          covers every member's search).
         - ``'auto'`` (default): ``'serial'`` for resident data; for
           streaming sources ``'fused'`` while the stacked codebook is
-          ≤ 32k nodes, else ``'batched'`` (the measured crossover — at
-          ~37k stacked nodes the concatenated GEMM fills the MXU and
-          wins, BASELINE.md round 5).
+          ≤ ``_FUSED_STREAM_MAX_NODES`` nodes, else ``'batched'``.
 
         Either strategy trains the same math per member; programs differ,
         so compare across strategies by quantization error, not bitwise
@@ -678,11 +639,7 @@ class SomPopulation:
             elif strategy == "fused":
                 impl = "fused"
             else:
-                # 'auto' (round 5, BASELINE.md): the fused lax.map program
-                # won or tied every measured row up to 32.3k stacked
-                # nodes; the concatenated GEMM finally fills the MXU at
-                # ~37k (0.84×) — route by the stacked-codebook size with
-                # the measured crossover gate
+                # 'auto': route by the stacked-codebook size
                 impl = _streaming_auto_impl(
                     self._n_members * self._x * self._y
                 )

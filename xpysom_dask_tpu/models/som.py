@@ -11,11 +11,11 @@ offset; topographic-error thresholds; ``um/um.max()`` normalization;
 What changed underneath:
 
 - the NumPy/CuPy ``xp`` backend kwarg becomes a jit-compiled functional core
-  (``xpysom_dask_tpu.core``) targeting XLA:TPU;
+  (``xpysom_dask_tpu.core``) compiled by XLA for the GPU (or the CPU);
 - the inline Dask distribution branches (xpysom.py:545-558) become an
   optional ``jax.sharding.Mesh`` with a ``'data'`` axis: pass ``mesh='auto'``
   (or a mesh / a device count) to shard the sample axis over devices with
-  on-ICI ``psum`` reductions;
+  ``psum`` reductions;
 - ``use_dask=True`` is accepted for source compatibility and maps to
   ``mesh='auto'`` with a warning; ``xp=`` and ``dask_chunks=`` are accepted
   and ignored.
@@ -105,33 +105,34 @@ class XPySom:
         """Initializes a Self Organizing Map.
 
         Parameter semantics follow the reference constructor
-        (xpysom.py:73-253). TPU-specific additions:
+        (xpysom.py:73-253). Additions:
 
         mesh : None | 'auto' | int | jax.sharding.Mesh (default=None)
             Data-parallel device mesh. 'auto' uses every local device;
             an int uses that many; a Mesh must carry a 'data' axis.
 
-        bmu_precision : str (default: 'packed'; 'highest' for even-p
-            norm_p activations)
-            Numerical mode of the fused BMU-search kernel:
-            'packed' (3-term bf16-split GEMM, measured exact argmin),
-            'bf16' (single-pass, ~1.6x faster, ~1.5-2% flipped winners),
-            'split3', 'highest' (exact f32, 6 MXU passes). Part of the
-            compiled spec — switching modes compiles a second executable,
-            never silently reuses a stale one.
+        bmu_precision : str (default: 'packed')
+            Numerical mode of the fused BMU kernel on the GPU:
+            'packed' (3-term bf16-split products, exact argmin against
+            float64 outside near-ties), 'split2' (2-term), 'bf16'
+            (single pass, flips near-tied winners), or 'highest' (the
+            f32 XLA reference, no kernel). Paths without the kernel
+            (the CPU, non-euclidean/cosine activations) always compute
+            exact f32 distances. Part of the compiled spec — switching
+            modes compiles a second executable.
 
-        bmu_tiles : (TN, TJ) tuple (default: measured per-width defaults)
-            Kernel tile override (TN multiple of 8, TJ of 128); see
-            ``autotune_kernel`` for on-device selection.
+        bmu_tiles : (BN, BJ) or (BN, BJ, num_warps, num_stages)
+            Kernel block override (BN, BJ powers of two >= 16; default:
+            the per-width table in ``ops.pallas.bmu``).
 
-        use_pallas : bool (default True on TPU)
+        use_pallas : bool (default True)
             False forces the plain-XLA BMU formulation (the reference's
             ``_no_opt`` testing pattern, tests.py:24-31).
 
         Each of the three defaults can be overridden by the env switches
         ``XPYSOM_BMU_PRECISION`` / ``XPYSOM_BMU_TILES`` /
-        ``XPYSOM_TPU_NO_PALLAS``, read ONCE here at construction;
-        explicit constructor arguments always win.
+        ``XPYSOM_NO_PALLAS``, read ONCE here at construction; explicit
+        constructor arguments always win.
 
         Accepted for source compatibility and ignored: ``xp`` (the backend
         is always XLA), ``dask_chunks``. ``use_dask=True`` maps to
@@ -234,35 +235,31 @@ class XPySom:
             use_pallas=use_pallas if self._use_pallas_explicit else core.FROM_ENV,
         )
         self._bmu_precision = cfg.bmu_precision
-        self._bmu_tiles = cfg.bmu_tiles  # (TN, TJ) or None = measured defaults
+        self._bmu_tiles = cfg.bmu_tiles  # block override or None = table
         self._use_pallas = cfg.use_pallas
         if self._bmu_precision == "split2" and input_len < 32:
-            # Verified failure mode (round 5, BASELINE.md): split2's
-            # self-consistent ‖w_h‖² means nodes whose bf16 shadows
-            # coincide tie EXACTLY, and the deterministic first-index
-            # tie-break then starves the later nodes for the rest of
-            # training — a measured 64→14-winner map collapse on low-D
-            # clustered data. The tie-basin shrinks as ~2⁻⁸ᴰ; at the
-            # widths where split2 actually wins (D≥128: 1.41× packed at
-            # D=512) coincidence is impossible in practice, and at low D
-            # packed is speed-parity anyway.
+            # split2's self-consistent ‖w_h‖² makes nodes whose bf16
+            # shadows coincide tie EXACTLY, and the first-index tie-break
+            # then starves the later node for the rest of training (map
+            # collapse on low-D clustered data). The tie basin shrinks as
+            # ~2⁻⁸ᴰ, so it is a low-D hazard only.
             warn(
                 f"bmu_precision='split2' with input_len={input_len} < 32: "
                 "coincident bf16 codebook shadows can starve nodes during "
-                "training (map collapse; BASELINE.md round 5). split2 only "
-                "outruns 'packed' at wide D — prefer 'packed' here."
+                "training (map collapse) — prefer 'packed' here."
             )
 
-        # The fused-kernel chunk default (16384) is only safe on paths
-        # that never materialize the (chunk, XY) distance matrix — ask the
-        # kernel dispatch itself (constructor-time read of the same gates
-        # training traces: backend, activation, feature width, config), so
-        # e.g. wide-feature or use_pallas=False configs keep the
-        # budgeted default while every fused activation gets big chunks.
+        # The fused-kernel chunk default is only safe on paths that never
+        # materialize the (chunk, XY) distance matrix — ask the kernel
+        # dispatch itself (the same gates training traces: backend,
+        # activation, feature width, config), so e.g. use_pallas=False
+        # configs keep the budgeted default.
         self._n_parallel_explicit = n_parallel != 0
         if n_parallel == 0:
             fused = (
-                core._pallas_bmu_kind(dist_obj, input_len, self._use_pallas)
+                core._pallas_bmu_kind(
+                    dist_obj, input_len, self._use_pallas, self._bmu_precision
+                )
                 is not None
             )
             n_parallel = default_n_parallel(x * y, fused=fused)
@@ -311,7 +308,7 @@ class XPySom:
     def _matrix_chunk(self) -> int:
         """Chunk size for paths that MATERIALIZE the (chunk, XY) distance
         matrix (topographic top-2, distance_from_weights, the XLA BMU
-        fallback): the fused-kernel default (16384) would transiently
+        fallback): the fused-kernel default chunk would transiently
         allocate chunk·XY·4 bytes — 17 GB at XY=512² — so auto-sized SOMs
         fall back to the element-budgeted default here. An explicit user
         ``n_parallel`` is honored everywhere (it IS the reference's memory
@@ -325,12 +322,11 @@ class XPySom:
     def _chunked(self, data2d: np.ndarray, chunk: int = None, bucket: bool = False):
         """Pad + chunk host data and place it on device(s).
 
-        Chunk sizes are aligned to the fused kernel's sample tile (1024)
-        when larger than one tile: unaligned chunks force an in-graph pad
-        per scan step, which was measured to blow Mosaic/XLA compile time
-        from ~1.5 s to >100 s on some shapes. Alignment rounds DOWN so a
-        user-specified ``n_parallel`` (a memory budget, reference
-        xpysom.py:131-137) is never exceeded.
+        Chunk sizes above one row block are whole multiples of the fused
+        kernel's row block (``utils.hw.ROW_BLOCK``), so no chunk pads per
+        scan step. Alignment rounds DOWN so a user-specified
+        ``n_parallel`` (a memory budget, reference xpysom.py:131-137) is
+        never exceeded.
 
         ``bucket=True`` (the INFERENCE paths — winner/predict/QE/TE) snaps
         the padded shape onto a small ladder so repeated calls with
@@ -428,88 +424,6 @@ class XPySom:
     def get_weights(self):
         """Returns the weights of the neural network."""
         return self._weights
-
-    def autotune_kernel(self, apply=True, n_samples=None, **kwargs):
-        """Measure BMU-kernel tile candidates on the attached device at
-        the shape training will actually trace for this SOM — the
-        tile-aligned chunk (what ``_chunked`` produces for a large
-        dataset; pass ``n_samples=len(data)`` when the dataset is SMALLER
-        than ``n_parallel``, since then the chunk shrinks to it) and the
-        per-model-shard node count on grid meshes. With ``apply=True``,
-        pins the winner on THIS instance (``bmu_tiles`` in the compiled
-        spec — jit caches key on it, so it takes effect on the next call
-        even after earlier traces) and exports ``XPYSOM_BMU_TILES`` for
-        direct-core users. Returns the
-        :class:`~xpysom_dask_tpu.ops.pallas.autotune.TuneResult`, or
-        ``None`` (with a warning) when this SOM would not trace a fused
-        kernel at all (non-TPU backend, ``use_pallas=False``, or a
-        feature width past the kernel budgets) — tuning the kernel the
-        XLA path never runs would waste minutes of compiles.
-        Extra kwargs pass through to ``autotune_bmu_tiles``
-        (``candidates=``, ``reps=``, ``inner=``, ``mode=``...)."""
-        from ..ops.pallas.autotune import autotune_bmu_tiles
-
-        # tune the kernel + feature width + mode TRAINING actually traces
-        # for this activation (core._pallas_bmu_kind): manhattan has its
-        # own kernel; even-p norm_p rides the euclidean kernel at the
-        # EXPANDED width in 'highest' mode; cosine matches euclidean dims
-        kind = core._pallas_bmu_kind(
-            self._spec.distance_fn(), self._input_len, self._use_pallas
-        )
-        if kind is None:
-            warn(
-                "autotune_kernel: this SOM dispatches to the plain-XLA BMU "
-                "path (no fused kernel on this backend/config) — nothing "
-                "to tune; returning None"
-            )
-            return None
-        # the SAME sizing training traces (utils.hw.training_chunk — the
-        # one shared copy, so autotuned tiles always measure the chunk
-        # shape _chunked will actually dispatch)
-        chunk = training_chunk(
-            int(n_samples) if n_samples is not None else self._n_parallel,
-            self._n_parallel,
-        )
-        xy = self._x * self._y
-        if self._is_grid_mesh():
-            from ..parallel.grid_sharded import MODEL_AXIS
-
-            xy = max(xy // int(self._mesh.shape[MODEL_AXIS]), 1)
-        d_eff = self._input_len
-        if kind == "manhattan":
-            kwargs.setdefault("kernel", "manhattan")
-            # for the L1 kernel `mode` carries the accumulation strategy;
-            # tune the 'serial' form both dispatch paths actually run
-            # (core._bmu_chunk and grid_sharded._local_min_arg force it —
-            # bf16 measured less accurate AND slower, BASELINE.md round 3)
-            kwargs.setdefault("mode", "serial")
-        elif kind == "norm_p_even":
-            p = int(self._activation_distance_kwargs.get("p", 2))
-            d_eff = self._input_len * (p + 1)
-            kwargs.setdefault("mode", self._bmu_precision)
-        elif kind == "norm_p_odd":
-            # no default: the dispatch gate routes these kinds only when
-            # kwargs carry a p of the right class (review, round 5)
-            p = int(self._activation_distance_kwargs["p"])
-            kwargs.setdefault("kernel", f"norm_p_odd_{p}")
-            kwargs.setdefault("mode", None)  # exact f32, no precision modes
-        elif kind == "norm_p_frac":
-            p = float(self._activation_distance_kwargs["p"])
-            kwargs.setdefault("kernel", f"norm_p_frac_{p}")
-            kwargs.setdefault("mode", None)  # no precision modes
-        else:
-            kwargs.setdefault("mode", self._bmu_precision)
-        kwargs.setdefault("inner", 8)  # amortize per-dispatch overhead
-        res = autotune_bmu_tiles(
-            n=chunk,
-            xy=xy,
-            d=d_eff,
-            apply=apply,
-            **kwargs,
-        )
-        if apply:
-            self._bmu_tiles = tuple(res.tiles)
-        return res
 
     def get_euclidean_coordinates(self):
         """Euclidean-plane positions of the neurons as two meshgrids
@@ -959,7 +873,7 @@ class XPySom:
         # fallback top-2 selection materializes (chunk, XY/shards)
         # distances — budget the chunk independently of the fused
         # training default; the fused top-2 kernel (core.te_uses_fused)
-        # keeps the matrix in VMEM and takes training-sized chunks
+        # never writes the matrix and takes training-sized chunks
         te_chunk = (
             None
             if (not self._is_grid_mesh() and core.te_uses_fused(self._spec))
@@ -1166,11 +1080,19 @@ class XPySom:
         self.__dict__.update(state)
         # pickles from before the first-class kernel config get defaults
         self.__dict__.setdefault("_use_pallas", True)
-        self.__dict__.setdefault(
-            "_bmu_precision",
-            "highest" if self._activation_distance_name == "norm_p" else "packed",
-        )
+        self.__dict__.setdefault("_bmu_precision", "packed")
         self.__dict__.setdefault("_bmu_tiles", None)
+        # modes and tile shapes of earlier kernels that no longer exist
+        # load as the defaults rather than failing spec validation
+        if self._bmu_precision not in core.PRECISIONS:
+            self._bmu_precision = "packed"
+        if self._bmu_tiles is not None:
+            from ..ops.pallas.bmu import validate_blocks
+
+            try:
+                self._bmu_tiles = validate_blocks(self._bmu_tiles)
+            except ValueError:
+                self._bmu_tiles = None
         # pickles from before the *_explicit flags existed: treat every
         # kernel/sizing knob as auto (fresh construction-time resolution
         # on the loading host — the cross-host portability stance of

@@ -1,5 +1,5 @@
-"""Numeric kernels: distances, neighborhoods, decay schedules, Pallas TPU
-kernels. The jit-compiled counterpart of the reference's L1 layer
+"""Numeric kernels: distances, neighborhoods, decay schedules, the
+Pallas BMU kernel. The jit-compiled counterpart of the reference's L1 layer
 (``distances.py``/``neighborhoods.py``/``decays.py``)."""
 
 from . import decays, distances, neighborhoods

@@ -1,6 +1,6 @@
 """Decay schedules for learning rate and neighborhood radius.
 
-TPU-native rebuild of the reference schedules (reference:
+JAX rebuild of the reference schedules (reference:
 ``xpysom_dask/decays.py:4-65``). Each schedule is a pure function of the
 iteration index and is fully jittable: the iteration ``t`` may be a traced
 JAX scalar so a single compiled epoch step serves every epoch of a training

@@ -1,13 +1,13 @@
 """Pairwise sample-to-codebook distance kernels.
 
-TPU-native rebuild of the reference distance module
+JAX rebuild of the reference distance module
 (``xpysom_dask/distances.py``). The reference threads a NumPy/CuPy ``xp``
 module through every function; here each distance is a pure jittable JAX
-function. Dense forms are expressed as matmuls so XLA tiles them onto the
-MXU; the one native CUDA kernel in the reference (the Manhattan
-``ReductionKernel``, distances.py:110-118) has a Pallas TPU counterpart in
-``xpysom_dask_tpu.ops.pallas`` — the functions here are the XLA fallback
-path (the reference's ``_no_opt`` pattern).
+function, and these functions are the XLA reference path. Dense forms are
+expressed as matmuls. The one native CUDA kernel in the reference (the
+Manhattan ``ReductionKernel``, distances.py:110-118) needs no counterpart:
+XLA fuses the broadcast ``abs``-reduce form into one reduction. The fused
+euclidean/cosine BMU search on the GPU is ``ops.pallas.bmu``.
 
 All functions take ``x`` of shape ``(N, D)`` and a flattened codebook ``w``
 of shape ``(XY, D)`` and return a ``(N, XY)`` distance matrix. An optional
@@ -21,7 +21,7 @@ Semantics preserved:
   ``‖x‖²`` term is dropped because it is constant per row and argmin-
   invariant (reference distances.py:11-23,163).
 - ``norm_p`` uses the binomial-expansion GEMM trick for even ``p``
-  (reference distances.py:77-96) — a particularly good fit for the MXU.
+  (reference distances.py:77-96): every term is a GEMM.
 - ``euclidean_distance`` wraps the squared form in ``nan_to_num`` + ``sqrt``
   (negative values from fp cancellation clamp to 0 before the sqrt).
 """
@@ -34,9 +34,8 @@ import jax
 import jax.numpy as jnp
 
 # Distance matmuls run at HIGHEST precision: the BMU argmin is sensitive to
-# the bf16 default on TPU MXUs (~2% flipped winners, QE off by ~2e-5 on the
-# 128x128x64 workload), while these GEMMs are HBM-bound, not MXU-bound, so
-# full fp32 accuracy costs nothing measurable.
+# reduced-precision matmul defaults (bf16, or TF32 on the GPU, flip
+# near-tied winners), and this is the exact reference path.
 _PRECISION = jax.lax.Precision.HIGHEST
 
 __all__ = [
@@ -107,18 +106,17 @@ def norm_p_power_distance_generic(x, w, p=2):
 def norm_p_power_distance_even(x, w, p=2):
     """Binomial-expansion GEMM form of ``sum((x - w)**p)`` for even ``p``
     (reference distances.py:77-96): ``sum_e (-1)^e C(p,e) (x^(p-e))·(w^e)ᵀ``.
-    Every term is an MXU matmul."""
+    Every term is a GEMM."""
     if p % 2 != 0:
         raise ValueError("p must be even")
     if p < 2:
         # the expansion's range(p + 1) loop is empty for negative p (an
         # all-zeros "distance" — silently wrong argmins); the dispatcher
         # keeps p < 2 on the generic pow path, and a direct caller gets a
-        # real error (mirrors ops.pallas.bmu.bmu_norm_p_even)
+        # real error
         raise ValueError("p must be even and >= 2")
     # a float integral p (e.g. 2.0) selects this branch via `p % 2 == 0`
-    # exactly like the Pallas gate (core._pallas_bmu_kind) — coerce so
-    # range(p + 1) works and the XLA fallback matches the kernel path
+    # — coerce so range(p + 1) works
     p = int(p)
     acc = jnp.zeros((x.shape[0], w.shape[0]), dtype=_F32)
     k = 1
@@ -149,17 +147,9 @@ def manhattan_distance_no_opt(x, w):
 
 
 def manhattan_distance(x, w):
-    """Manhattan distance. On TPU backends the optimized Pallas reduction
-    kernel (the counterpart of the reference's CUDA ReductionKernel,
-    distances.py:110-135) is used when shapes allow; otherwise the XLA
-    broadcast fallback."""
-    try:
-        from .pallas import manhattan as _pl_manhattan
-
-        if _pl_manhattan.supported(x, w):
-            return _pl_manhattan.manhattan_distance(x, w)
-    except ImportError:  # pragma: no cover - pallas always importable here
-        pass
+    """Manhattan distance: the broadcast ``abs``-reduce form, which XLA
+    fuses into one reduction — what the reference's CUDA
+    ``ReductionKernel`` (distances.py:110-135) was written by hand for."""
     return manhattan_distance_no_opt(x, w)
 
 

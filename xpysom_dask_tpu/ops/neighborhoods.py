@@ -1,6 +1,6 @@
 """Neighborhood weight kernels.
 
-TPU-native rebuild of ``xpysom_dask/neighborhoods.py``. Two forms are
+JAX rebuild of ``xpysom_dask/neighborhoods.py``. Two forms are
 provided:
 
 1. **Batched per-center form** (API- and numerics-parity with the
@@ -8,13 +8,13 @@ provided:
    integer BMU coordinates per sample. These match the reference functions
    element-for-element and back the parity test-suite.
 
-2. **Operator (factorized) form** for the TPU-first training update: the
+2. **Operator (factorized) form** for the training update: the
    batch-SOM numerator ``Σₙ h(bmu_n)·x_n`` only depends on samples through
    the per-BMU sufficient statistics ``S[b] = Σ_{n: bmu=b} x_n``, so the
    neighborhood enters as a *fixed per-epoch linear operator* ``H[b, j]``
    over grid nodes. For rectangular topologies every reference kernel is a
    (sum of) separable product(s) ``H = Σ_k Axᵏ ⊗ Ayᵏ`` with tiny
-   ``(X, X)``/``(Y, Y)`` factors, turning the update into two small MXU
+   ``(X, X)``/``(Y, Y)`` factors, turning the update into two small
    GEMMs instead of the reference's ``(X·Y, N) @ (N, D)`` GEMM over a
    materialized ``(N, X, Y)`` tensor (reference xpysom.py:434-440). The
    hexagonal (generic) kernels factor the same way once split by the
@@ -51,8 +51,8 @@ import jax.numpy as jnp
 import numpy as np
 
 # Operator-application GEMMs run at HIGHEST precision: they are tiny
-# (O(XY^2 D) worst case) but feed the codebook update directly, and the
-# TPU bf16 matmul default would inject ~1e-3 relative error into W.
+# (O(XY^2 D) worst case) but feed the codebook update directly, and a
+# bf16 or TF32 matmul default would inject ~1e-3 relative error into W.
 _PRECISION = jax.lax.Precision.HIGHEST
 
 __all__ = [
@@ -308,8 +308,7 @@ def neighborhood_operator(
         # CLASSES — so the generic kernels (products/sums of f(Δx²), g(Δy²))
         # factor exactly into Σ_δ AXδ ⊗ (Ay ⊙ Mδ): three class-masked
         # separable terms for gaussian, nine for mexican hat. The update
-        # drops from O(XY²·D) (pairwise H tiles; measured 3.2 ms/epoch on
-        # the 128×128×64 flagship, BASELINE.md round 3) to the rect-grade
+        # drops from O(XY²·D) (pairwise H tiles) to the rect-grade
         # O(XY·(X+Y)·D) GEMMs — hex trains at rectangular speed.
         d = 2.0 * std_coeff**2 * sigma**2
         # off[r] = 1 where xx[::-2] shifted row r: rows counted from the

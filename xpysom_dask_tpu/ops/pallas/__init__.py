@@ -1,26 +1,13 @@
-"""Pallas TPU kernels for the SOM hot path.
+"""Pallas kernels for the SOM hot path on NVIDIA Hopper.
 
-The reference's one native kernel is a CUDA ``ReductionKernel`` for
-Manhattan distance (reference distances.py:110-118). The TPU-native
-equivalents here go further, attacking the actual bottleneck of the batch
-SOM (HBM traffic on the ``(N, XY)`` distance matrix):
-
-- ``bmu``: fused distance + argmin BMU search for every GEMM-expressible
-  activation (euclidean / cosine / even-p norm_p via one augmented GEMM;
-  manhattan via an unrolled L1 tile) plus the on-device tile
-  ``autotune``r. The distance tile lives only in VMEM; the kernel streams
-  sample tiles against a codebook kept on-chip and writes just the
-  ``(N,)`` winner indices (and min values) back to HBM — removing the
-  dominant memory-bound materialization the XLA path pays.
-- ``manhattan``: tiled |x-w| distance-MATRIX kernel (the CUDA kernel's
-  direct counterpart, for when the full matrix is wanted).
-- ``stats`` / ``fused_stats``: measured-NEGATIVE scatter experiments kept
-  as re-measurement hooks — the standalone VMEM-accumulator scatter and
-  the in-kernel BMU+stats fusion both lost the in-context ranking to the
-  XLA scatter-add (BASELINE.md round 3); neither is dispatched by any
-  model path (``stats`` only via ``XPYSOM_MOSAIC_SCATTER=1``).
+``bmu``: the fused BMU search (GEMM on the tensor cores + running
+argmin, Triton route) for the euclidean and cosine activations. The
+reference's one native kernel, a CUDA ``ReductionKernel`` for Manhattan
+distance (reference distances.py:110-118), has no counterpart here: XLA
+fuses the broadcast ``abs``-reduce form (``ops.distances``) into one
+reduction itself.
 """
 
-from . import autotune, bmu, manhattan  # noqa: F401
+from . import bmu  # noqa: F401
 
-__all__ = ["autotune", "bmu", "manhattan"]
+__all__ = ["bmu"]

@@ -1,5 +1,5 @@
 """Distribution layer: device meshes, shardings and data pipelines — the
-TPU-native replacement of the reference's inline Dask branches
+replacement of the reference's inline Dask branches
 (xpysom.py:545-558)."""
 
 from .grid_sharded import codebook_sharding, is_grid_mesh, make_grid_mesh

@@ -21,8 +21,9 @@ mesh:
   neighborhood-operator update is computed once, each shard keeping its
   row slice.
 
-Every collective rides the mesh (ICI within a slice, DCN across), zero
-host involvement — the same design rules as the data-parallel path.
+Every collective rides the mesh (NVLink between the cards of a host),
+with no host involvement — the same design rules as the data-parallel
+path.
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from ..core import SomSpec, _decays, _update_from_stats
+from ..core import SomSpec, _decays, _update_from_stats, scatter_sum
 from ..ops.distances import DistanceFunction
 
 _F32 = jnp.float32
@@ -87,105 +88,38 @@ def _local_rows(spec: SomSpec, n_model: int) -> int:
     return spec.xy // n_model
 
 
-def _global_center(spec: SomSpec, w_flat_local):
-    """Mean of the FULL codebook, replicated over 'model' — the kernel's
-    translation center must be identical on every shard so per-shard min
-    values stay comparable in the pmin merge."""
-    return jax.lax.psum(
-        jnp.sum(w_flat_local, axis=0), MODEL_AXIS
-    ) / jnp.float32(spec.xy)
+def _global_center(w_flat_local):
+    """``core.codebook_center`` of the FULL codebook, replicated over
+    'model': the kernel's translation center must be identical on every
+    shard so per-shard min values stay comparable in the pmin merge, and
+    bit-identical to the unsharded center (min/max reduce exactly in any
+    order) so sharded and unsharded searches agree to the last bit."""
+    lo = jax.lax.pmin(jnp.min(w_flat_local, axis=0), MODEL_AXIS)
+    hi = jax.lax.pmax(jnp.max(w_flat_local, axis=0), MODEL_AXIS)
+    return 0.5 * (lo + hi)
 
 
-def _center_and_wsq(spec: SomSpec, dist: DistanceFunction, w_flat_local):
-    """(center, w_sq) for the per-shard BMU search, computing only what
-    the selected path consumes: the fused kernel re-derives ‖w‖² from the
-    centered codebook (a caller-side w_sq would be discarded) and only it
-    uses ``center``, while the XLA path wants the plain w_sq cache and no
-    center (and the center's psum collective must not run at all for
-    distances that never use it)."""
-    from ..core import _pallas_bmu_kind
+def _shard_searcher(spec: SomSpec, dist: DistanceFunction, w_flat_local, top2=False):
+    """``core.bmu_searcher`` over this shard's codebook rows. Values must
+    be comparable ACROSS shards for the pmin merge: the euclidean kernel
+    is centred by the per-feature midrange of the FULL codebook
+    (``_global_center``: a pmin and a pmax over 'model', run only on that
+    path), the cosine value 1−sim divides by
+    the shard-invariant ``‖x‖``, and the XLA path's values are absolute."""
+    from ..core import _pallas_bmu_kind, bmu_searcher
 
-    kind = _pallas_bmu_kind(dist, spec.input_len, spec.use_pallas)
-    if kind in ("euclidean", "norm_p_even"):
-        # a SHARD-INVARIANT center keeps per-shard min values comparable
-        return _global_center(spec, w_flat_local), None
-    if kind is not None:  # cosine/manhattan kernels take neither input
-        return None, None
+    kind = _pallas_bmu_kind(
+        dist, spec.input_len, spec.use_pallas, spec.bmu_precision
+    )
+    center = _global_center(w_flat_local) if kind == "euclidean" else None
     w_sq = (
         jnp.sum(jnp.square(w_flat_local), axis=1, keepdims=True)
-        if dist.can_cache
+        if kind is None and dist.can_cache
         else None
     )
-    return None, w_sq
-
-
-def _local_min_arg(dist: DistanceFunction, x, w_local, w_sq, center=None, spec=None):
-    """Per-shard (min value, local argmin) — via the fused Pallas kernels
-    on TPU (euclidean/cosine/manhattan), else the XLA distance matrix.
-    Min values must be comparable ACROSS shards for the pmin merge:
-    ``center`` (replicated) shifts the euclidean values identically
-    everywhere, the cosine value 1−sim divides by the shard-invariant
-    ``‖x‖``, and the L1 value is absolute. ``spec`` supplies the
-    first-class kernel config (core._bmu_config)."""
-    from ..core import _bmu_config, _pallas_bmu_kind
-
-    use_pallas, mode, tiles = _bmu_config(spec)
-    kind = _pallas_bmu_kind(dist, x.shape[-1], use_pallas)
-    if kind == "euclidean":
-        from ..ops.pallas.bmu import bmu_euclidean
-
-        idx, val = bmu_euclidean(
-            x, w_local, w_sq, center=center, mode=mode, tiles=tiles
-        )
-        return val, idx
-    if kind == "cosine":
-        from ..ops.pallas.bmu import bmu_cosine
-
-        idx, val = bmu_cosine(x, w_local, mode=mode, tiles=tiles)
-        return val, idx
-    if kind == "manhattan":
-        from ..ops.pallas.bmu import bmu_manhattan
-
-        # Always the exact serial accumulation, matching the single-device
-        # dispatch (core._bmu_chunk): the round-3 ranking measured bf16
-        # BOTH less accurate AND slower on the VPU-bound L1 kernel
-        # (16.41 vs 11.01 ms/exec) — honoring bmu_precision='bf16' here
-        # would give the same model config different numerics and worse
-        # speed depending on mesh shape (advisor, round 3).
-        idx, val = bmu_manhattan(x, w_local, tiles=tiles, accum="serial")
-        return val, idx
-    if kind == "norm_p_even":
-        from ..ops.pallas.bmu import bmu_norm_p_even
-
-        idx, val = bmu_norm_p_even(
-            x, w_local, p=int(dist.kwargs.get("p", 2)), center=center,
-            mode=mode if mode is not None else "highest", tiles=tiles,
-        )
-        return val, idx
-    if kind == "norm_p_odd":
-        from ..ops.pallas.bmu import bmu_norm_p_odd
-
-        # exact f32 elementwise values, absolute like L1 — comparable
-        # across shards without a center. No default: the gate routes
-        # here only when kwargs carry an odd p (a .get default of 2
-        # would be one the kernel itself rejects)
-        idx, val = bmu_norm_p_odd(
-            x, w_local, p=int(dist.kwargs["p"]), tiles=tiles
-        )
-        return val, idx
-    if kind == "norm_p_frac":
-        from ..ops.pallas.bmu import bmu_norm_p_frac
-
-        # absolute p-th-power values like L1/odd-p — comparable across
-        # shards without a center. No default: the gate routes here
-        # only for non-integer p
-        idx, val = bmu_norm_p_frac(
-            x, w_local, p=float(dist.kwargs["p"]), tiles=tiles
-        )
-        return val, idx
-    d_local = dist.flat(x, w_local, w_sq)
-    # jnp.argmin is first-index on ties, same as the kernel's iota trick
-    return jnp.min(d_local, axis=1), jnp.argmin(d_local, axis=1).astype(jnp.int32)
+    return bmu_searcher(
+        dist, w_flat_local, w_sq, spec, top2=top2, center=center
+    )
 
 
 def _global_bmu(local_min, local_arg, offset):
@@ -208,7 +142,7 @@ def _shard_stats(
     resolves at call time (direct/measurement callers)."""
     rows = w_local.shape[0]
     offset = jax.lax.axis_index(MODEL_AXIS) * rows
-    center, w_sq = _center_and_wsq(spec, dist, w_local)
+    search = _shard_searcher(spec, dist, w_local)
     d_dim = spec.input_len
     if split is None:
         from ..core import _use_split_scatter
@@ -217,7 +151,7 @@ def _shard_stats(
 
     def body(carry, xs):
         x, m = xs
-        lmin, larg = _local_min_arg(dist, x, w_local, w_sq, center, spec)
+        larg, lmin = search(x)
         bmu, _ = _global_bmu(lmin, larg, offset)
         mine = (bmu >= offset) & (bmu < offset + rows)
         local_idx = jnp.clip(bmu - offset, 0, rows - 1)
@@ -226,11 +160,7 @@ def _shard_stats(
             # lane-boundary widths: separate S / cnt scatters, see
             # core._use_split_scatter
             s_acc, c_acc = carry
-            s_part = (
-                jnp.zeros((rows, d_dim), dtype=_F32)
-                .at[local_idx]
-                .add(x * contrib[:, None])
-            )
+            s_part = scatter_sum(local_idx, x * contrib[:, None], rows)
             c_part = jnp.zeros((rows,), dtype=_F32).at[local_idx].add(contrib)
             return (s_acc + s_part, c_acc + c_part), None
         # fused [x | 1] scatter + fresh per-chunk partials: see
@@ -240,7 +170,7 @@ def _shard_stats(
             jnp.concatenate([x, jnp.ones((x.shape[0], 1), _F32)], axis=1)
             * contrib[:, None]
         )
-        part = jnp.zeros_like(carry).at[local_idx].add(aug)
+        part = scatter_sum(local_idx, aug, rows)
         return carry + part, None
 
     if split:
@@ -392,10 +322,10 @@ def make_bmu_fn_2d(spec: SomSpec, mesh: Mesh):
         rows = w_local.shape[0] * w_local.shape[1]
         w_flat_local = w_local.reshape(rows, spec.input_len)
         offset = jax.lax.axis_index(MODEL_AXIS) * rows
-        center, w_sq = _center_and_wsq(spec, dist, w_flat_local)
+        search = _shard_searcher(spec, dist, w_flat_local)
 
         def body(_, x):
-            lmin, larg = _local_min_arg(dist, x, w_flat_local, w_sq, center, spec)
+            larg, lmin = search(x)
             bmu, _ = _global_bmu(lmin, larg, offset)
             return None, bmu.astype(jnp.int32)
 
@@ -433,20 +363,10 @@ def make_topographic_stats_fn_2d(spec: SomSpec, mesh: Mesh):
     single-device path. Adjacency semantics match
     ``core.make_topographic_stats_fn``.
 
-    Round 5 (VERDICT r4 #3): the per-shard search rides the fused top-2
-    kernel (``bmu_euclidean(top2=True)``) on TPU — the shard-invariant
-    ``_global_center`` (one tiny psum per TE call) keeps partial values
-    comparable across shards, and the kernel's stable-argsort top-2
-    semantics feed the SAME lexicographic merge as the ``lax.top_k``
-    fallback (which remains for ``use_pallas=False`` / off-TPU). The
-    degenerate (data=1, model=1) grid mesh in ``tests_tpu`` lowers this
-    program through the real Mosaic compiler on a single chip.
-
-    Measured on-chip (tools/r5_grid_te.py, (1,1) grid, 128×128×64,
-    N=65536): fused 1.14 M samples/s vs fallback 0.755 M — 1.51×, TE
-    bit-equal. The r4 rationale for keeping the fallback unfused
-    ("cross-shard merge complexity") is hereby superseded by evidence."""
-    from ..core import _pallas_bmu_kind, grid_coordinates, te_fused_mode
+    The per-shard search is ``core.te_spec``'s top-2 search (the fused
+    kernel on the GPU); its stable-argsort top-2 feeds the same
+    lexicographic merge on every path."""
+    from ..core import grid_coordinates, te_spec
 
     n_model = mesh.shape[MODEL_AXIS]
     rows = _local_rows(spec, n_model)
@@ -462,10 +382,7 @@ def make_topographic_stats_fn_2d(spec: SomSpec, mesh: Mesh):
             "(xpysom.py:742-743) is undefined for non-square hex maps"
         )
     eucl = DistanceFunction("euclidean")
-    use_fused = (
-        _pallas_bmu_kind(eucl, spec.input_len, spec.use_pallas) == "euclidean"
-    )
-    fused_mode = te_fused_mode(spec)
+    te = te_spec(spec)
     xx_np, yy_np = grid_coordinates(spec.x, spec.y, spec.topology)
     xx = jnp.asarray(xx_np, _F32)
     yy = jnp.asarray(yy_np, _F32)
@@ -473,30 +390,14 @@ def make_topographic_stats_fn_2d(spec: SomSpec, mesh: Mesh):
     def run(w_local, data, mask):
         w_flat_local = w_local.reshape(rows, spec.input_len)
         offset = jax.lax.axis_index(MODEL_AXIS) * rows
-        if use_fused:
-            center = _global_center(spec, w_flat_local)
-            w_sq = None
-        else:
-            center = None
-            w_sq = jnp.sum(jnp.square(w_flat_local), axis=1, keepdims=True)
+        search = _shard_searcher(te, eucl, w_flat_local, top2=True)
 
         def body(carry, xs):
             errs, n = carry
             x, m = xs
-            if use_fused:
-                from ..ops.pallas.bmu import bmu_euclidean
-
-                i1l, v1l, i2l, v2l = bmu_euclidean(
-                    x, w_flat_local, center=center,
-                    mode=fused_mode, tiles=spec.bmu_tiles, top2=True,
-                )
-                vals2 = jnp.stack([v1l, v2l], axis=1)
-                idxs2 = jnp.stack([i1l, i2l], axis=1) + offset
-            else:
-                d_local = eucl.flat(x, w_flat_local, w_sq)
-                nv, ni = jax.lax.top_k(-d_local, 2)  # local top-2, stable
-                vals2 = -nv
-                idxs2 = ni.astype(jnp.int32) + offset
+            i1l, v1l, i2l, v2l = search(x)  # local top-2, stable
+            vals2 = jnp.stack([v1l, v2l], axis=1)
+            idxs2 = jnp.stack([i1l, i2l], axis=1) + offset
             # (chunk, 2) per shard -> (chunk, 2k) candidates, then two
             # lexicographic min passes for the global (top1, top2)
             vals = jax.lax.all_gather(vals2, MODEL_AXIS, axis=1, tiled=True)
@@ -540,12 +441,12 @@ def make_quantization_stats_fn_2d(spec: SomSpec, mesh: Mesh):
         rows = w_local.shape[0] * w_local.shape[1]
         w_flat_local = w_local.reshape(rows, spec.input_len)
         offset = jax.lax.axis_index(MODEL_AXIS) * rows
-        center, w_sq = _center_and_wsq(spec, eucl, w_flat_local)
+        search = _shard_searcher(spec, eucl, w_flat_local)
 
         def body(carry, xs):
             tot, n = carry
             x, m = xs
-            lmin, larg = _local_min_arg(eucl, x, w_flat_local, w_sq, center, spec)
+            larg, lmin = search(x)
             bmu, _ = _global_bmu(lmin, larg, offset)
             mine = (bmu >= offset) & (bmu < offset + rows)
             local_idx = jnp.clip(bmu - offset, 0, rows - 1)

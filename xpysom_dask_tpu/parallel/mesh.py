@@ -6,8 +6,8 @@ tasks, codebook re-shipped to every task, accumulators reduced on the
 driver each epoch. Here distribution is a real layer: a 1-D
 ``jax.sharding.Mesh`` with a ``'data'`` axis; epoch steps are
 ``shard_map``-wrapped pure functions (see ``core.py``) whose per-shard
-sufficient statistics are ``psum``-reduced over ICI/DCN with zero driver
-involvement.
+sufficient statistics are ``psum``-reduced by collectives (NVLink
+between the cards of a host) with zero driver involvement.
 """
 
 from __future__ import annotations
@@ -33,18 +33,19 @@ DATA_AXIS = "data"
 
 
 def initialize_multihost(coordinator_address=None, num_processes=None, process_id=None):
-    """Join a multi-host (multi-slice / DCN) run.
+    """Join a multi-host run.
 
     Thin wrapper over ``jax.distributed.initialize`` — call once per host
     before building meshes; afterwards ``jax.devices()`` spans every host
     and ``make_data_mesh()`` / ``make_grid_mesh()`` lay the ``data`` axis
-    across slices, so the per-epoch ``psum`` of sufficient statistics rides
-    ICI within a slice and DCN across (the reference's closest analog is
+    across hosts, so the per-epoch ``psum`` of sufficient statistics spans
+    every host (the reference's closest analog is
     pointing ``dask.distributed`` at a multi-node cluster,
     README.md:52-59 — here the runtime is JAX's own).
 
-    With no arguments, coordinates are taken from the environment
-    (TPU pod metadata / ``JAX_COORDINATOR_ADDRESS`` et al.).
+    With no arguments, JAX looks for a cluster in the environment; on a
+    plain GPU host pass ``coordinator_address`` (``host:port``),
+    ``num_processes`` and ``process_id`` explicitly.
     """
     kwargs = {}
     if coordinator_address is not None:

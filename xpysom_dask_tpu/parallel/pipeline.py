@@ -2,7 +2,7 @@
 
 The reference scales past memory via user-provided Dask arrays whose chunks
 are shipped to workers per epoch (reference xpysom.py:545-558). The
-TPU-native equivalent: stream *superbatches* from host (or disk, via
+equivalent here: stream *superbatches* from host (or disk, via
 ``np.memmap`` or the native C++ chunk loader) into device memory while the
 previous superbatch computes, folding per-BMU sufficient statistics on
 device. Because the batch-SOM update is a pure reduction over samples
@@ -13,9 +13,9 @@ reassociation.
 Overlap comes from JAX async dispatch: ``device_put`` of superbatch ``k+1``
 and host-side disk reads run while the device crunches superbatch ``k``.
 
-At north-star scale (10⁸×64 fp32 = 25.6 GB) a v5 chip holds only a few
-superbatches; this pipeline keeps the MXU fed from host RAM/disk
-(SURVEY.md §7 risk "huge-N data motion").
+At north-star scale (10⁸×64 fp32 = 25.6 GB) the data need not fit on the
+device; this pipeline keeps it fed from host RAM/disk (SURVEY.md §7 risk
+"huge-N data motion").
 """
 
 from __future__ import annotations
@@ -201,7 +201,7 @@ class ShardedFileSource:
     each process streams only its round-robin slice of the file list
     (``files[process_id::num_processes]``), so a multi-host data-parallel
     run (``initialize_multihost`` + ``mesh='auto'``) reads disjoint data
-    — the TPU-native replacement for the reference shipping per-worker
+    — the replacement for the reference shipping per-worker
     Dask chunks from the driver (xpysom.py:545-558): every host pulls
     its own shards straight from storage. Cross-host traffic during the
     epoch is the per-superbatch statistics ``psum`` plus one tiny
@@ -382,7 +382,11 @@ def stats_streaming(
     ``stats_fn`` overrides the compiled accumulator (``stats(w, data,
     mask) -> stats-pytree``) — the population sweep passes its own so
     the multi-host superbatch synchronization lives in exactly one
-    place; the default builds the single-model one from ``spec``."""
+    place; the default builds the single-model one from ``spec``. On one
+    device that one continues its scan from superbatch to superbatch, so
+    the epoch adds its chunks in the order of the resident epoch and,
+    where the device's scatter is deterministic, equals it to the bit."""
+    carry = mesh is None and stats_fn is None
     if mesh is not None and _is_grid(mesh):
         n_data = int(mesh.shape["data"])
         if stats_fn is None:
@@ -438,8 +442,11 @@ def stats_streaming(
         else:
             chunks = _put(chunks, mesh, sharded=True)
             mask = _put(mask, mesh, sharded=True)
-        part = stats_fn(w, chunks, mask)
-        if s is None:
+        if carry and s is not None:
+            part = stats_fn(w, chunks, mask, (s, cnt))
+        else:
+            part = stats_fn(w, chunks, mask)
+        if carry or s is None:
             s, cnt = part
         else:
             s, cnt = fold_stats((s, cnt), part)
@@ -475,10 +482,8 @@ def train_streaming(
         )
     superbatch_rows = _check_rows(superbatch_rows)
     # the SAME training-branch sizing the resident path applies
-    # (utils.hw.training_chunk): align >1-tile chunks to the fused
-    # kernel's 1024 sample tile — an unaligned chunk (e.g. a raw
-    # n_parallel of 1792) forces an in-graph pad per scan step, measured
-    # to blow Mosaic/XLA compile time from ~1.5 s to >100 s
+    # (utils.hw.training_chunk): whole kernel row blocks, so no chunk
+    # pads per scan step
     from ..utils.hw import training_chunk
 
     chunk = training_chunk(superbatch_rows, chunk)

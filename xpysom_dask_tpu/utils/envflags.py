@@ -1,7 +1,7 @@
 """Boolean env-switch parsing.
 
 The common shell idiom ``FLAG=0`` means OFF; bare string truthiness would
-read it as ON (a user exporting ``XPYSOM_TPU_NO_PALLAS=0`` to be explicit
+read it as ON (a user exporting ``XPYSOM_NO_PALLAS=0`` to be explicit
 would silently disable every fused kernel). One parser, used by every
 boolean ``XPYSOM_*`` switch, mirroring ``core._use_split_scatter``'s
 0/1 handling.

@@ -1,11 +1,12 @@
 """Hardware introspection and mini-batch auto-sizing.
 
-TPU-native counterpart of ``xpysom_dask/utils.py`` (``find_max_cuda_threads``
-/ ``find_cpu_cores``) and the ``n_parallel`` auto-sizing logic
-(xpysom.py:242-251). On TPU the right sizing target is not thread residency
-but keeping the MXU fed while bounding the transient ``(chunk, XY)``
-distance matrix: we budget a fixed element count for that matrix and derive
-the chunk from the grid size.
+Counterpart of ``xpysom_dask/utils.py`` (``find_max_cuda_threads`` /
+``find_cpu_cores``) and the ``n_parallel`` auto-sizing logic
+(xpysom.py:242-251). The reference sized the chunk from CUDA thread
+residency; here the target is bounding the transient ``(chunk, XY)``
+distance matrix of the XLA path (an element budget, from which the chunk
+follows the grid size), or — where the fused BMU kernel never writes that
+matrix — giving the kernel enough row blocks to fill the card.
 """
 
 from __future__ import annotations
@@ -21,16 +22,25 @@ __all__ = [
     "round_up",
     "training_chunk",
     "inference_chunk",
+    "ROW_BLOCK",
 ]
 
 # Inference chunk-size ladder: geometric rungs (×8) bound the set of
 # compiled shapes across arbitrary call sizes — see inference_chunk.
 INFER_RUNGS = (8, 64, 512)
 
-# Distance-matrix element budget per chunk. 2^24 fp32 elements = 64 MB HBM
+# Chunks above one row block are whole multiples of it: the largest row
+# block (BN) of the fused BMU kernel (ops.pallas.bmu), so no chunk pads.
+ROW_BLOCK = 128
+
+# Distance-matrix element budget per chunk. 2^24 fp32 elements = 64 MB
 # transient on accelerators; scaled down on CPU hosts.
 _ACCEL_BUDGET = 1 << 24
 _CPU_BUDGET = 1 << 20
+
+# Rows per chunk when the fused kernel runs the search: 16384 rows are
+# 256 row blocks of 64, about two per SM of an H100 (PERF.md).
+_FUSED_CHUNK = 16384
 
 
 def find_cpu_cores() -> int:
@@ -39,30 +49,34 @@ def find_cpu_cores() -> int:
 
 
 def backend_kind() -> str:
-    """'tpu', 'gpu' or 'cpu' for the default JAX backend."""
-    try:
-        return jax.default_backend()
-    except Exception:  # pragma: no cover
-        return "cpu"
+    """'gpu' or 'cpu' for the default JAX backend."""
+    return jax.default_backend()
 
 
 def round_up(value: int, multiple: int) -> int:
     return -(-value // multiple) * multiple
 
 
+def _align_cap(cap: int) -> int:
+    """Round a chunk budget DOWN to whole row blocks above one block, and
+    to 8 rows above 8; a cap below 8 (an explicit user budget) stands."""
+    if cap > ROW_BLOCK:
+        return (cap // ROW_BLOCK) * ROW_BLOCK
+    if cap >= 8:
+        return (cap // 8) * 8
+    return cap
+
+
 def training_chunk(n: int, n_parallel: int) -> int:
     """THE training-branch chunk size: budget cap, shrunk to the data,
-    floored to the fused kernel's 1024 sample tile when above one tile
-    (unaligned chunks force an in-graph pad per scan step — measured to
-    blow Mosaic/XLA compile time from ~1.5 s to >100 s on some shapes).
-    Rounds DOWN so ``n_parallel`` (a memory budget, reference
-    xpysom.py:131-137) is never exceeded. Shared by ``XPySom._chunked``
-    and ``SomPopulation._train_serial`` so the serial sweep's
-    'bit-identical to training each member individually' guarantee can
-    never drift (advisor, round 4)."""
+    whole row blocks above one block. Rounds DOWN so ``n_parallel`` (a
+    memory budget, reference xpysom.py:131-137) is never exceeded.
+    Shared by ``XPySom._chunked`` and ``SomPopulation._train_serial`` so
+    the serial sweep's 'bit-identical to training each member
+    individually' guarantee can never drift."""
     chunk = min(n_parallel, round_up(max(n, 1), 8))
-    if chunk > 1024:
-        chunk = max(1024, (chunk // 1024) * 1024)
+    if chunk > ROW_BLOCK:
+        chunk = (chunk // ROW_BLOCK) * ROW_BLOCK
     return chunk
 
 
@@ -74,19 +88,13 @@ def inference_chunk(n: int, cap: int) -> tuple[int, int]:
     next ``INFER_RUNGS`` rung under the budget cap (then the cap), and the
     chunk COUNT rounds up to a power of two with fully-masked padding
     chunks — distinct compiled shapes across ANY call sequence ≤
-    len(rungs)+1 ladder × log₂(max C). The cap itself rounds DOWN to its
-    alignment (1024 sample tiles above one tile, 8 lanes above one group)
-    and a cap below 8 stands as-is: a user-specified ``n_parallel`` (a
-    memory budget, reference xpysom.py:131-137) is never exceeded
-    (round-5 review: ``max(8, ...)`` silently doubled an explicit
-    ``n_parallel=4``). Shared by ``XPySom._chunked(bucket=True)`` and the
-    streaming ``SomPopulation`` metrics so the compile-class bound can
-    never drift between them."""
-    if cap > 1024:
-        cap = max(1024, (cap // 1024) * 1024)
-    elif cap >= 8:
-        cap = (cap // 8) * 8
-    # cap < 8: the user's explicit budget stands, unaligned but honored
+    len(rungs)+1 ladder × log₂(max C). The cap rounds DOWN to its
+    alignment (``_align_cap``), so a user-specified ``n_parallel`` (a
+    memory budget, reference xpysom.py:131-137) is never exceeded.
+    Shared by ``XPySom._chunked(bucket=True)`` and the streaming
+    ``SomPopulation`` metrics so the compile-class bound can never drift
+    between them."""
+    cap = _align_cap(cap)
     chunk = next((r for r in INFER_RUNGS if n <= r <= cap), cap)
     c = max(1, -(-n // chunk))
     return chunk, 1 << (c - 1).bit_length()
@@ -96,23 +104,19 @@ def default_n_parallel(
     xy: int, backend: str | None = None, fused: bool = False
 ) -> int:
     """Auto-size the mini-batch (samples per chunk) like the reference's
-    ``n_parallel`` default (xpysom.py:242-251), but budgeted against the
+    ``n_parallel`` default (xpysom.py:242-251), budgeted against the
     transient ``(chunk, XY)`` distance matrix instead of CUDA thread
-    residency. Clamped to [256, 65536] and rounded to a multiple of 256 so
-    chunks tile the VPU/MXU cleanly.
+    residency. Clamped to [256, 65536] and rounded to a multiple of 256.
 
-    ``fused=True`` (euclidean activation on TPU): the Pallas BMU kernel
-    never materializes the distance matrix in HBM, so the budget does not
-    apply — chunk 16384 measured fastest end-to-end (36.5 ms/epoch vs
-    42.4 at 8192 and 38.8 at 32768 on the 2^19×16384×64 flagship;
-    fewer scan steps amortize per-chunk scatter/dispatch)."""
+    ``fused=True`` (the fused BMU kernel runs the search, on the GPU):
+    no distance matrix is written, so the budget does not apply; the
+    chunk is ``_FUSED_CHUNK`` rows."""
     backend = backend or backend_kind()
-    if fused and backend == "tpu":
-        return 16384
-    budget = _ACCEL_BUDGET if backend in ("tpu", "gpu") else _CPU_BUDGET
+    if fused and backend == "gpu":
+        return _FUSED_CHUNK
+    budget = _ACCEL_BUDGET if backend == "gpu" else _CPU_BUDGET
     chunk = budget // max(xy, 1)
     # round DOWN to the 256 multiple (floor 256): rounding up after the
-    # division could exceed the documented element budget by ~2x at
-    # awkward XY (review r4: xy=4000 -> 262 -> round-up 512 ≈ 1.95x over)
+    # division could exceed the element budget by ~2x at awkward XY
     chunk = max(256, min(65536, (chunk // 256) * 256))
     return chunk

@@ -113,10 +113,10 @@ def _config_dict(som):
         # checkpoint unconditionally so the reloaded model reproduces the
         # training numerics. use_pallas/bmu_tiles are HARDWARE tuning:
         # persisted only when user-explicit (the n_parallel_explicit
-        # treatment), so (a) the XPYSOM_TPU_NO_PALLAS kill-switch on the
+        # treatment), so (a) the XPYSOM_NO_PALLAS kill-switch on the
         # loading host is honored (fresh construction-time resolution)
-        # and (b) tiles autotuned on one TPU generation are never pinned
-        # on a machine whose Mosaic VMEM budget they might exceed.
+        # and (b) blocks chosen for one card are never pinned on a card
+        # whose shared memory they might exceed.
         "bmu_precision": som._bmu_precision,
         "bmu_tiles": (
             list(som._bmu_tiles)
